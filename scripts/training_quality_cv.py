@@ -21,7 +21,7 @@ fold; per-checkpoint diagnostic basecalls are thinned (the selected
 checkpoint is always basecalled after selection).
 
 Usage:  python scripts/training_quality_cv.py OUTDIR [seed,seed,...]
-Writes OUTDIR/cv_summary.json; ~10 min per (fold x seed) on one v5e.
+Writes OUTDIR/cv_summary.json.
 """
 import json
 import os

@@ -25,7 +25,7 @@ class BuildWithNative(build_py):
 setup(
     name="sloika_tpu",
     version="0.1.0",
-    description="TPU-native nanopore basecaller training framework",
+    description="Nanopore basecaller training framework in JAX",
     packages=find_packages(include=["sloika_tpu", "sloika_tpu.*"]),
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "h5py", "scipy"],

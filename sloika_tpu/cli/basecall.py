@@ -16,7 +16,7 @@ from sloika_tpu import __version__
 
 def make_parser():
     parser = argparse.ArgumentParser(
-        description='Basecall reads with a transducer network (TPU-native)',
+        description='Basecall reads with a transducer network',
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
 
     common = argparse.ArgumentParser(add_help=False)
@@ -36,7 +36,7 @@ def make_parser():
                         choices=['auto', 'on', 'off'],
                         help='Collapse calls to bases on device and transfer '
                              'compacted move records (chunked transducer '
-                             'mode; "auto" = on for TPU backends)')
+                             'mode; "auto" = on for GPU backends)')
     common.add_argument('--dac', default='auto',
                         choices=['auto', 'on', 'off'],
                         help='Ship raw int16 DAC samples and window + '
@@ -115,7 +115,8 @@ def load_model(path):
 def main(argv=None):
     args = make_parser().parse_args(argv)
 
-    from sloika_tpu import basecall as bc
+    from sloika_tpu import backend, basecall as bc
+    backend.init_compile_cache()
     from sloika_tpu.data.fast5 import iterate_fast5
     from sloika_tpu.parallel import mesh as meshlib
 
@@ -129,7 +130,7 @@ def main(argv=None):
 
     layer, params = load_model(args.model)
     if args.device_collapse == 'auto':
-        device_collapse = (jax.default_backend() == 'tpu' and args.chunked
+        device_collapse = (backend.platform() == 'gpu' and args.chunked
                            and args.transducer and len(args.alphabet) == 4)
     else:
         device_collapse = args.device_collapse == 'on'

@@ -74,8 +74,7 @@ def make_parser():
     remap_common = argparse.ArgumentParser(add_help=False)
     remap_common.add_argument('--batch', default=64, type=Positive(int),
                               help='Reads remapped per device batch '
-                                   '(measured best on v5e: 3.3M samples/s; '
-                                   'batches exceeding device memory fall '
+                                   '(batches exceeding device memory fall '
                                    'back to halves automatically)')
     remap_common.add_argument('--min_prob', default=1e-5, type=proportion,
                               help='Posterior probability floor')
@@ -98,9 +97,9 @@ def make_parser():
                                    'loader by <=2 ulp of f32 scaling')
     remap_common.add_argument('--band', default='auto',
                               help='Remap DP band width in sequence '
-                                   'positions: "auto" (512-position Pallas '
-                                   'band on TPU, exact elsewhere), "exact", '
-                                   'or an integer')
+                                   'positions: "auto" (the platform\'s '
+                                   'choice, sloika_tpu/backend.py), '
+                                   '"exact", or an integer')
     remap_common.add_argument('model',
                               help='Model for remapping (.npz/.json/.pkl)')
     remap_common.add_argument('references', action=FileExists,
@@ -146,6 +145,8 @@ def proportion_percent(argument):
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
+    from sloika_tpu import backend
+    backend.init_compile_cache()
     # multi-host chunkify: under a coordinator each process takes a strided
     # share of the read list and rank 0 writes the merged outputs
     # (chunkify_tools._finalise); without this the per-process sharding in

@@ -18,7 +18,7 @@ from sloika_tpu import __version__
 
 def make_parser():
     parser = argparse.ArgumentParser(
-        description='Train a transducer neural network (TPU-native)',
+        description='Train a transducer neural network',
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
 
     common = argparse.ArgumentParser(add_help=False)
@@ -127,7 +127,8 @@ def main(argv=None):
 
     import jax
     import numpy as np
-    from sloika_tpu import serialize, training
+    from sloika_tpu import backend, serialize, training
+    backend.init_compile_cache()
     from sloika_tpu.data import hdf5
     from sloika_tpu.models import network_factory
     from sloika_tpu.parallel import mesh as meshlib

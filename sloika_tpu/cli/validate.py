@@ -35,7 +35,8 @@ def make_parser():
 def main(argv=None):
     args = make_parser().parse_args(argv)
 
-    from sloika_tpu import training
+    from sloika_tpu import backend, training
+    backend.init_compile_cache()
     from sloika_tpu.cli.basecall import load_model
     from sloika_tpu.data import hdf5
 

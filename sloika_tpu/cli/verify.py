@@ -31,7 +31,9 @@ def main(argv=None):
 
     import jax
     import numpy as np
+    from sloika_tpu import backend
     from sloika_tpu.models import network_factory
+    backend.init_compile_cache()
 
     network = network_factory(args.model)
     layer = network(klen=args.kmer_len, sd=args.sd,

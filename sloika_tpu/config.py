@@ -1,10 +1,9 @@
 """Global numeric configuration for sloika_tpu.
 
-The reference pins everything to Theano's floatX=float32
-(/root/reference/sloika/config.py:1-3).  On TPU we keep float32 as the
-parameter/IO dtype for parity with the reference, and expose a compute-dtype
-knob so matmul-heavy paths can run in bfloat16 on the MXU when parity is not
-required.
+The reference pins everything to Theano's floatX=float32 (sloika/config.py
+in the reference).  float32 stays the parameter/IO dtype for parity with
+the reference, and a compute-dtype knob lets matmul-heavy paths run in
+bfloat16 on the tensor cores when parity is not required.
 """
 import os
 
@@ -19,14 +18,16 @@ sloika_dtype = np.float32
 jax_dtype = jnp.float32
 
 #: compute dtype for matmuls inside the hot path.  float32 by default for
-#: parity; set SLOIKA_TPU_COMPUTE_DTYPE=bfloat16 for maximum MXU throughput.
+#: parity; set SLOIKA_TPU_COMPUTE_DTYPE=bfloat16 for tensor-core throughput.
 compute_dtype = jnp.bfloat16 if os.environ.get(
     "SLOIKA_TPU_COMPUTE_DTYPE", "float32") == "bfloat16" else jnp.float32
 
 
 def set_matmul_precision(precision: str = "highest") -> None:
-    """Set default matmul precision for f32 matmuls on TPU.
+    """Set the default precision of float32 matmuls.
 
-    'highest' = full f32 (6-pass bf16), 'high' = 3-pass, 'default' = bf16.
+    On the GPU, 'default' runs float32 matmuls as TF32 on the tensor cores
+    (about three decimal digits), 'high' as three bf16 passes, and
+    'highest' as IEEE float32.  Parity references ask for 'highest'.
     """
     jax.config.update("jax_default_matmul_precision", precision)

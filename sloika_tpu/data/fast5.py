@@ -18,7 +18,6 @@ import glob
 import os
 import re
 
-import h5py
 import numpy as np
 
 
@@ -26,6 +25,7 @@ class Fast5(object):
     """Context-manager reader for one fast5 file."""
 
     def __init__(self, filename, mode="r"):
+        import h5py
         self.filename = filename
         self._h5 = h5py.File(filename, mode)
 

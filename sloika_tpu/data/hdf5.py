@@ -5,7 +5,6 @@ Byte-compatible with the reference schema (util.py:52-91): gzip'd datasets
 attributes — so training sets produced by either framework interoperate.
 """
 
-import h5py
 import numpy as np
 
 from sloika_tpu import util
@@ -31,6 +30,7 @@ def create_labelled_chunks_hdf5(output, blanks, attributes, chunk_list,
     max_blanks = int(all_labels.shape[1] * blanks)
     all_weights = nblank < max_blanks
 
+    import h5py
     with h5py.File(output, 'w') as h5:
         h5.create_dataset('bad', data=all_bad.astype('i1'), compression="gzip")
         h5.create_dataset('chunks', data=all_chunks.astype('f4'),
@@ -49,6 +49,7 @@ def load_labelled_chunks(path, reweight='weights'):
     :returns: dict with chunks (N, T, F) f32, labels (N, T') i32,
         bad (N, T') bool, weights (N,) f64 normalised to sum 1, attrs dict
     """
+    import h5py
     with h5py.File(path, 'r') as h5:
         chunks = h5['chunks'][:]
         labels = h5['labels'][:]

@@ -25,12 +25,13 @@ test_fast5.py pins on the bundled reads):
     UniqueGlobalKey/channel_id                             scaling attrs
     Analyses/AlignToRef_000/CurrentSpaceMapped_template/Events   mapping
     Analyses/AlignToRef_000/Summary/current_space_map_template   direction
+    Analyses/Basecall_1D_000/BaseCalled_template/Events    the same events
     Analyses/Alignment_000/Aligned_template/Fasta          per-read reference
 """
 import os
 
-import h5py
 import numpy as np
+import numpy.lib.recfunctions  # noqa: F401  (repack_fields)
 
 ALPHABET = b'ACGT'
 SAMPLE_RATE = 4000.0
@@ -135,6 +136,7 @@ def write_fast5(path, read, read_number=0):
     table['good_emission'] = True
 
     name = os.path.splitext(os.path.basename(path))[0]
+    import h5py
     with h5py.File(path, "w") as h5:
         raw = h5.create_group("Raw/Reads/Read_%d" % read_number)
         raw.create_dataset("Signal", data=quant)
@@ -159,6 +161,11 @@ def write_fast5(path, read, read_number=0):
         summ.attrs["genome_end"] = np.int64(len(seq))
         summ.attrs["num_skips"] = np.int64(0)
         summ.attrs["num_stays"] = np.int64(0)
+        # the per-kmer events double as a basecall event table, so the
+        # event-based paths (basecall events, chunkify identity) run too
+        h5.create_group("Analyses/Basecall_1D_000/BaseCalled_template") \
+            .create_dataset("Events", data=np.lib.recfunctions.repack_fields(
+                table[['start', 'length', 'mean', 'stdv']]))
         fasta = ">%s\n%s\n" % (name, seq.decode())
         h5.create_group("Analyses/Alignment_000/Aligned_template") \
             .create_dataset("Fasta", data=fasta)

@@ -55,7 +55,8 @@ def affine(x, W, b=None):
 
     ``W`` has reference layout ``(out_features, in_features)``.  The matmul is
     performed in :data:`sloika_tpu.config.compute_dtype` (bfloat16 on request)
-    with float32 accumulation — this is the op that lands on the MXU.
+    with float32 accumulation — this is the op that lands on the tensor
+    cores.
     """
     if compute_dtype != jnp.float32:
         y = jax.lax.dot_general(

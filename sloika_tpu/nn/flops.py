@@ -7,13 +7,13 @@ participates in exactly one multiply-accumulate per frame it is applied to,
 so a layer's cost per *output* frame is ``2 x (non-bias parameter count)``;
 a stride-``s`` layer charges that to ``s`` input frames.  Cheap elementwise
 work (activations, gates, normalisation) is excluded deliberately — it
-never touches the MXU, and counting it would flatter the utilisation
+never touches the tensor cores, and counting it would flatter the utilisation
 number.
 """
 import numpy as np
 
 #: parameter-tree keys that are biases / peepholes (elementwise adds or
-#: products, not MXU contractions)
+#: products, not tensor-core contractions)
 _BIAS_KEYS = frozenset({"b", "b2", "p", "b_u", "b_z", "b_r", "b_h"})
 
 
@@ -73,7 +73,7 @@ def training_flops_per_input_frame(layer, params):
     dL/d(weights) — the standard 3x-forward rule for dense/recurrent
     nets (each is the same-shaped matmul).  Optimiser work (ADAMski) is
     elementwise over *parameters* per step, not per frame, and never
-    touches the MXU; at reference batch shapes (100 chunks x 2000 frames)
+    touches the tensor cores; at reference batch shapes (100 chunks x 2000 frames)
     it is <0.01% of the contraction FLOPs, so it is excluded like all
     other elementwise work (see module docstring).  Validated against
     XLA's cost analysis of a value_and_grad program in

@@ -1,319 +1,343 @@
-"""Fused Pallas GRU recurrence.
+"""Fused GRU recurrence as Pallas (Triton route) kernels.
 
-The GRU scan body is three small matmuls plus elementwise gates; under an
-XLA ``while`` loop each step pays fixed per-iteration overhead.  This kernel
-runs the whole time loop as a Pallas ``grid=(batch blocks, T)`` program:
-the recurrent weights stay resident in VMEM, the hidden state lives in
-VMEM scratch (carried across the fast time axis, re-zeroed per batch
-block), and Pallas pipelines the per-step loads of the (precomputed) input
-projection and the output stores.  Batches over 512 rows are split into
-blocks so the double-buffered per-step tiles stay inside scoped VMEM
-(whole-batch tiles OOM'd at B=2048).
+Under an XLA ``while`` loop every GRU step costs several kernel launches
+for two small matmuls and a few gates.  Here each program owns ``BB``
+batch rows and loops over time inside the kernel (``fori_loop``): the
+hidden state stays in registers and the recurrent weights are re-read
+from L1/L2 each step, so a whole layer is one launch.
 
-Semantics are identical to :class:`sloika_tpu.nn.rnn.Gru` with the standard
-``sigmoid``/``tanh`` gate functions (reference layers.py:1010-1021).
-Differentiation goes through a ``jax.custom_vjp`` whose backward pass is a
-dedicated reverse-time Pallas kernel (``_bwd_kernel``): it recomputes the
-gates from (xp_t, h_{t-1}) instead of saving them, carries the state
-cotangent in VMEM scratch, and accumulates the recurrent-weight cotangents
-in VMEM across the grid.  Gradients match the XLA scan to float32
-round-off (tests/test_pallas_gru.py).
+Semantics are those of :class:`sloika_tpu.nn.rnn.Gru` with the standard
+``sigmoid``/``tanh`` gates (reference layers.py:1010-1021).  The hidden
+size ``S`` is zero-padded to a power of two ``Sp`` for ``pl.dot``; this is
+exact: a padded unit has zero weights and a zero initial state, so
+``z = r = 0.5`` and ``hbar = tanh(0) = 0`` keep it at 0.  Loads and stores
+of the unpadded (T, B, 3S) / (T, B, S) arrays are masked, so no padded
+copy of an activation is made.  The state is held as column blocks whose
+weight blocks fit shared memory (:func:`block_width`).
+
+Differentiation goes through a ``jax.custom_vjp``.  The backward kernel
+walks time in reverse, recomputes the gates from (xp_t, h_{t-1}), carries
+the state cotangent in registers and writes the input-projection cotangent
+plus ``r * h_{t-1}``; the recurrent-weight cotangents are then two large
+(S, T*B) x (T*B, S) matmuls in XLA.
 
 Masked-step contract: the emitted value at a masked position is the
-*carried* state (the XLA scan path emits the freshly computed value
-there instead) — padded-position outputs are unspecified and consumers
-must mask them; parity holds on valid steps.
+*carried* state (the XLA scan emits the freshly computed value there) —
+padded-position outputs are unspecified and consumers must mask them.
 
-On by default on TPU for standard (tanh/sigmoid) GRUs of size >= 32
-(measured on v5e: 1.34x the XLA-scan training step); disable with
-``SLOIKA_TPU_FUSED_GRU=0`` or per-layer ``Gru(..., fused=False)``.
-Off-TPU the kernels run in interpreter mode (parity tests only).
+Matmul precision follows the caller: bfloat16 operands when
+``config.compute_dtype`` is bfloat16, otherwise float32 operands at the
+precision ``jax.default_matmul_precision`` names (TF32 on the tensor cores
+unless "highest"/"float32" asks for IEEE float32).
 """
-from functools import partial
+import operator
+from functools import partial, reduce
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from sloika_tpu import config
+from sloika_tpu.parallel import mesh as meshlib
+
+#: batch rows per program (``pl.dot`` needs at least 16) and warps per
+#: program: 16 rows on 8 warps measured fastest at S=110 and S=142 on an
+#: H100 (docs/PERF.md); 4 warps spill registers at the padded width 256
+BLOCK_ROWS = 16
+NUM_WARPS = 8
 
 
-def _kernel(xp_ref, mask_ref, sWT_ref, sW2T_ref, out_ref, h, *, S, B,
-            masked, precision):
-    @pl.when(pl.program_id(1) == 0)
-    def _init():
-        h[:] = jnp.zeros((B, S), jnp.float32)
+def padded_size(S):
+    """Power-of-two hidden width the kernels compute at (>= 16)."""
+    return max(16, 1 << (int(S) - 1).bit_length())
 
-    lp = xp_ref[0]                      # (B, 3S)
-    vS = jnp.dot(h[:], sWT_ref[:], preferred_element_type=jnp.float32,
+
+#: one (Wb, Wb) block of a recurrent weight matrix is a ``pl.dot`` operand
+#: in shared memory; blocks stay within 128 KB (bfloat16: Wb <= 256,
+#: float32: Wb <= 128), so a padded width of 256 runs as 2 x 2 blocks in
+#: float32
+_WEIGHT_BLOCK_BYTES = 1 << 17
+
+
+def block_width(Sp, dtype):
+    """Column-block width of the kernels' hidden state for weights of
+    ``dtype``."""
+    wb = Sp
+    while wb * wb * np.dtype(dtype).itemsize > _WEIGHT_BLOCK_BYTES:
+        wb //= 2
+    return wb
+
+
+def _dot(a, b, precision, transpose_b=False):
+    dims = (((1,), (1 if transpose_b else 0,)), ((), ()))
+    return jax.lax.dot_general(a.astype(b.dtype), b, dims,
+                               precision=precision,
+                               preferred_element_type=jnp.float32)
+
+
+def _matmul(xs, w_ref, gate, precision, transpose=False):
+    """``x @ W`` (or ``x @ W.T``) for the state held as column blocks
+    ``xs`` (a tuple of (BB, Wb) arrays) and gate ``gate``'s (Sp, Sp)
+    weights, one (Wb, Wb) weight block per ``pl.dot``."""
+    nb = len(xs)
+    wb = xs[0].shape[1]
+
+    def blk(i, j):
+        return w_ref[gate, i * wb:(i + 1) * wb, j * wb:(j + 1) * wb]
+
+    if transpose:
+        return tuple(reduce(operator.add, (
+            _dot(xs[j], blk(i, j), precision, transpose_b=True)
+            for j in range(nb))) for i in range(nb))
+    return tuple(reduce(operator.add, (_dot(xs[i], blk(i, j), precision)
+                                       for i in range(nb)))
+                 for j in range(nb))
+
+
+def _map(fn, *blocks):
+    return tuple(fn(*b) for b in zip(*blocks))
+
+
+def _step_gates(xz, xr, xh, h, w_ref, precision):
+    """Recompute (z, r, hbar) for one step from xp_t and h_{t-1}."""
+    z = _map(lambda x, y: jax.nn.sigmoid(x + y), xz,
+             _matmul(h, w_ref, 0, precision))
+    r = _map(lambda x, y: jax.nn.sigmoid(x + y), xr,
+             _matmul(h, w_ref, 1, precision))
+    rh = _map(lambda a, b: a * b, r, h)
+    hbar = _map(lambda x, y: jnp.tanh(x + y), xh,
+                _matmul(rh, w_ref, 2, precision))
+    return z, r, hbar
+
+
+class _Tile(object):
+    """Row/column indexing of one program's (BB, Sp) tile of a
+    (T, B, n*S) array as ``nb`` column blocks of width ``wb``, with the
+    padding and the batch tail masked."""
+
+    def __init__(self, B, S, BB, wb, nb):
+        self.rows = pl.program_id(0) * BB + jnp.arange(BB, dtype=jnp.int32)
+        self.valid = self.rows < B
+        self.cols = jnp.arange(wb, dtype=jnp.int32)
+        self.S, self.wb, self.nb = S, wb, nb
+
+    def _idx(self, t, gate, k):
+        local = k * self.wb + self.cols
+        mask = self.valid[:, None] & (local < self.S)[None, :]
+        return (t, self.rows[:, None],
+                gate * self.S + local[None, :]), mask
+
+    def load(self, ref, t, gate=0):
+        out = []
+        for k in range(self.nb):
+            idx, mask = self._idx(t, gate, k)
+            out.append(plgpu.load(ref.at[idx], mask=mask, other=0.0))
+        return tuple(out)
+
+    def store(self, ref, t, vals, gate=0):
+        for k, val in enumerate(vals):
+            idx, mask = self._idx(t, gate, k)
+            plgpu.store(ref.at[idx], val, mask=mask)
+
+    def step_mask(self, mask_ref, t):
+        m = plgpu.load(mask_ref.at[t, self.rows], mask=self.valid, other=0)
+        return (m != 0)[:, None]
+
+    def zeros(self, BB):
+        return tuple(jnp.zeros((BB, self.wb), jnp.float32)
+                     for _ in range(self.nb))
+
+
+def _fwd_kernel(xp_ref, mask_ref, w_ref, out_ref, *, T, B, S, BB, wb, nb,
+                reverse, precision):
+    tile = _Tile(B, S, BB, wb, nb)
+
+    def step(i, h):
+        t = T - 1 - i if reverse else i
+        z, _, hbar = _step_gates(tile.load(xp_ref, t, 0),
+                                 tile.load(xp_ref, t, 1),
+                                 tile.load(xp_ref, t, 2), h, w_ref, precision)
+        m = tile.step_mask(mask_ref, t)
+        new = _map(lambda z, h, hb: jnp.where(m, z * h + (1 - z) * hb, h),
+                   z, h, hbar)
+        tile.store(out_ref, t, new)
+        return new
+
+    jax.lax.fori_loop(0, T, step, tile.zeros(BB))
+
+
+def _bwd_kernel(xp_ref, mask_ref, w_ref, hout_ref, g_ref, dxp_ref, rh_ref,
+                *, T, B, S, BB, wb, nb, reverse, precision):
+    tile = _Tile(B, S, BB, wb, nb)
+
+    def step(j, dh):
+        i = T - 1 - j                     # scan step, visited last to first
+        t = T - 1 - i if reverse else i
+        t_prev = jnp.minimum(t + 1, T - 1) if reverse else jnp.maximum(t - 1, 0)
+        h_prev = _map(lambda h: jnp.where(i > 0, h, 0.0),
+                      tile.load(hout_ref, t_prev))
+        m = tile.step_mask(mask_ref, t)
+        z, r, hbar = _step_gates(tile.load(xp_ref, t, 0),
+                                 tile.load(xp_ref, t, 1),
+                                 tile.load(xp_ref, t, 2), h_prev, w_ref,
+                                 precision)
+        dht = _map(lambda a, b: a + b, dh, tile.load(g_ref, t))
+        # a masked step copied h through: its cotangent goes straight on
+        dh_eff = _map(lambda d: jnp.where(m, d, 0.0), dht)
+        dz = _map(lambda d, hp, hb, z: d * (hp - hb) * z * (1 - z),
+                  dh_eff, h_prev, hbar, z)
+        da = _map(lambda d, z, hb: d * (1 - z) * (1 - hb * hb),
+                  dh_eff, z, hbar)
+        drh = _matmul(da, w_ref, 2, precision, transpose=True)
+        dr = _map(lambda d, hp, r: d * hp * r * (1 - r), drh, h_prev, r)
+        dz_h = _matmul(dz, w_ref, 0, precision, transpose=True)
+        dr_h = _matmul(dr, w_ref, 1, precision, transpose=True)
+        dh_prev = _map(
+            lambda de, z, d_rh, r, a, b, d: (de * z + d_rh * r + a + b
+                                             + jnp.where(m, 0.0, d)),
+            dh_eff, z, drh, r, dz_h, dr_h, dht)
+        tile.store(dxp_ref, t, dz, 0)
+        tile.store(dxp_ref, t, dr, 1)
+        tile.store(dxp_ref, t, da, 2)
+        tile.store(rh_ref, t, _map(lambda a, b: a * b, r, h_prev))
+        return dh_prev
+
+    jax.lax.fori_loop(0, T, step, tile.zeros(BB))
+
+
+def _call(kernel, args, out_shape, interpret, name, dtype, **kw):
+    """Run ``kernel`` over the (T, B, ...) ``args`` (the recurrent weights,
+    ``args[2]``, replicated); under an ambient ``'data'`` mesh each device
+    runs it on its own batch shard."""
+    def call(*args):
+        T, B, threeS = args[0].shape
+        S = threeS // 3
+        Sp = padded_size(S)
+        wb = block_width(Sp, dtype)
+        shapes = jax.tree_util.tree_map(
+            lambda o: jax.ShapeDtypeStruct((T, B) + o.shape[2:], o.dtype),
+            out_shape)
+        return pl.pallas_call(
+            partial(kernel, T=T, B=B, S=S, BB=BLOCK_ROWS, wb=wb,
+                    nb=Sp // wb, **kw),
+            grid=(pl.cdiv(B, BLOCK_ROWS),),
+            out_shape=shapes,
+            backend="triton",
+            compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=1),
+            interpret=interpret,
+            name=name,
+        )(*args)
+
+    mesh = meshlib.data_mesh()
+    if mesh is None:
+        return call(*args)
+    P = jax.sharding.PartitionSpec
+    return jax.shard_map(
+        call, mesh=mesh,
+        in_specs=tuple(P() if i == 2 else P(None, "data")
+                       for i in range(len(args))),
+        out_specs=jax.tree_util.tree_map(lambda o: P(None, "data"),
+                                         out_shape),
+        check_vma=False)(*args)
+
+
+def _gate_weights(sW, sW2, dtype):
+    """(3, Sp, Sp) zero-padded, transposed recurrent weights [z, r, h]:
+    ``h @ w[g]`` is the step's state matmul for gate g."""
+    S = sW2.shape[0]
+    w = jnp.stack([sW[0].T, sW[1].T, sW2.T])
+    Sp = padded_size(S)
+    return jnp.pad(w, ((0, 0), (0, Sp - S), (0, Sp - S))).astype(dtype)
+
+
+@partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6, 7))
+def gru_fused(xp, sW, sW2, mask, reverse, precision, dtype, interpret):
+    """mask: int8 (T, B); pass all-ones for unmasked runs."""
+    T, B, threeS = xp.shape
+    return _call(_fwd_kernel,
+                 (xp, mask, _gate_weights(sW, sW2, dtype)),
+                 jax.ShapeDtypeStruct((T, B, threeS // 3), jnp.float32),
+                 interpret, "gru_forward", dtype, reverse=reverse,
                  precision=precision)
-    vT = lp[:, :2 * S] + vS
-    z = jax.nn.sigmoid(vT[:, :S])
-    r = jax.nn.sigmoid(vT[:, S:])
-    y = jnp.dot(r * h[:], sW2T_ref[:], preferred_element_type=jnp.float32,
-                precision=precision)
-    hbar = jnp.tanh(lp[:, 2 * S:] + y)
-    new = z * h[:] + (1 - z) * hbar
-    if masked:
-        m = mask_ref[0] != 0          # (B, 1)
-        new = jnp.where(m, new, h[:])
-    h[:] = new
-    out_ref[0] = new
 
 
-#: widest batch block one grid iteration holds in VMEM.  At 512 rows the
-#: double-buffered per-step blocks stay well under the 16 MB scoped-VMEM
-#: limit at any model width here (B=2048 whole-batch blocks exceeded it);
-#: batch blocks are fully independent scans, so blocking is exact.
-_BATCH_BLOCK = 512
+def _fwd(xp, sW, sW2, mask, reverse, precision, dtype, interpret):
+    out = gru_fused(xp, sW, sW2, mask, reverse, precision, dtype, interpret)
+    return out, (xp, sW, sW2, mask, out)
 
 
-def _batch_block(B, limit=None):
-    """Block size for a batch of B rows.  Prefers an even divisor of B (no
-    padding); a batch with only pathological divisors (e.g. 2 x prime) gets
-    the full ``limit`` and the caller pads B up to a multiple — padded rows
-    carry an all-zero mask so they contribute nothing to outputs or weight
-    cotangents and are sliced off."""
-    limit = _BATCH_BLOCK if limit is None else limit
-    if B <= limit:
-        return B
-    # only divisors in [ceil(limit/2), limit] avoid both VMEM overflow and
-    # grid serialisation; otherwise pad
-    for bb in range(limit, (limit + 1) // 2 - 1, -1):
-        if B % bb == 0:
-            return bb
-    return limit
-
-
-def _pad_batch(BB, *arrays):
-    """Pad axis 1 of each (T, B, ...) array up to a multiple of BB with
-    zeros.  Returns (padded_B, arrays...)."""
-    B = arrays[0].shape[1]
-    pad = -B % BB
-    if pad == 0:
-        return (B,) + arrays
-    out = tuple(
-        jnp.concatenate(
-            [a, jnp.zeros((a.shape[0], pad) + a.shape[2:], a.dtype)],
-            axis=1) for a in arrays)
-    return (B + pad,) + out
-
-
-def _pallas_scan(xp, mask, sWT, sW2T, reverse, precision, block=None):
-    T, B0, threeS = xp.shape
-    S = threeS // 3
-    masked = True
-    BB = _batch_block(B0, block)
-    B, xp, mask = _pad_batch(BB, xp, mask.reshape(T, B0, 1))
-
-    if reverse:
-        index_map = lambda b, t: (T - 1 - t, b, 0)
-    else:
-        index_map = lambda b, t: (t, b, 0)
-
-    kernel = partial(_kernel, S=S, B=BB, masked=masked, precision=precision)
-    out = pl.pallas_call(
-        kernel,
-        # time is the FASTEST axis so the hidden-state scratch carries
-        # across t within one batch block (re-zeroed at t == 0)
-        grid=(B // BB, T),
-        in_specs=[
-            pl.BlockSpec((1, BB, threeS), index_map, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BB, 1), index_map, memory_space=pltpu.VMEM),
-            pl.BlockSpec((S, 2 * S), lambda b, t: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((S, S), lambda b, t: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, BB, S), index_map,
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((T, B, S), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((BB, S), jnp.float32)],
-        interpret=jax.default_backend() not in ("tpu",),
-    )(xp, mask, sWT, sW2T)
-    return out[:, :B0] if B != B0 else out
-
-
-def _xla_scan(xp, mask, sWT, sW2T, reverse):
-    """Reference XLA implementation (identical math; used for the VJP)."""
+def _bwd(reverse, precision, dtype, interpret, res, g):
+    xp, sW, sW2, mask, h_out = res
     T, B, threeS = xp.shape
     S = threeS // 3
-
-    def step(h, inputs):
-        lp, m = inputs
-        vT = lp[:, :2 * S] + h @ sWT
-        z = jax.nn.sigmoid(vT[:, :S])
-        r = jax.nn.sigmoid(vT[:, S:])
-        hbar = jnp.tanh(lp[:, 2 * S:] + (r * h) @ sW2T)
-        new = z * h + (1 - z) * hbar
-        new = jnp.where(m[:, None], new, h)
-        return new, new
-
-    h0 = jnp.zeros((B, S), jnp.float32)
-    _, out = jax.lax.scan(step, h0, (xp, mask), reverse=reverse)
-    return out
-
-
-def _bwd_kernel(xp_ref, hout_ref, hprev_ref, dout_ref, mask_ref, sWT_ref,
-                sW2T_ref, sW_ref, sW2_ref, dxp_ref, dsWT_ref, dsW2T_ref,
-                dh, dsWT_acc, dsW2T_acc, *, S, B, precision):
-    """One reverse-time step of the GRU VJP.
-
-    Recomputes the gates from (xp_t, h_{t-1}) — cheaper than saving them —
-    and accumulates the weight cotangents in VMEM scratch across the grid.
-    """
-    t = pl.program_id(1)
-    T = pl.num_programs(1)
-
-    @pl.when(t == 0)
-    def _init():
-        dh[:] = jnp.zeros((B, S), jnp.float32)
-        dsWT_acc[:] = jnp.zeros((S, 2 * S), jnp.float32)
-        dsW2T_acc[:] = jnp.zeros((S, S), jnp.float32)
-
-    lp = xp_ref[0]
-    h_prev = hprev_ref[0]
-    h_t = hout_ref[0]
-    m = mask_ref[0] != 0                 # (B, 1)
-
-    # recompute forward quantities for this step
-    vT = lp[:, :2 * S] + jnp.dot(h_prev, sWT_ref[:],
-                                 preferred_element_type=jnp.float32,
-                                 precision=precision)
-    z = jax.nn.sigmoid(vT[:, :S])
-    r = jax.nn.sigmoid(vT[:, S:])
-    rh = r * h_prev
-    y = jnp.dot(rh, sW2T_ref[:], preferred_element_type=jnp.float32,
-                precision=precision)
-    hbar = jnp.tanh(lp[:, 2 * S:] + y)
-
-    dht = dh[:] + dout_ref[0]            # total cotangent into h_t
-    # masked steps copied h through: gradients flow straight to h_{t-1}
-    dh_eff = jnp.where(m, dht, jnp.zeros_like(dht))
-
-    dz = dh_eff * (h_prev - hbar) * z * (1 - z)
-    dhbar = dh_eff * (1 - z)
-    da = dhbar * (1 - hbar * hbar)       # a = lp[2S:] + y
-    drh = jnp.dot(da, sW2_ref[:], preferred_element_type=jnp.float32,
-                  precision=precision)
-    dr = drh * h_prev * r * (1 - r)
-    dvT = jnp.concatenate([dz, dr], axis=1)
-
-    dh_prev = (dh_eff * z + drh * r
-               + jnp.dot(dvT, sW_ref[:], preferred_element_type=jnp.float32,
-                         precision=precision))
-    dh_prev = dh_prev + jnp.where(m, jnp.zeros_like(dht), dht)
-
-    dxp = jnp.concatenate([dvT, da], axis=1)
-    dxp_ref[0] = jnp.where(m, dxp, jnp.zeros_like(dxp))
-
-    dsWT_acc[:] += jnp.dot(h_prev.T, dvT,
-                           preferred_element_type=jnp.float32,
-                           precision=precision)
-    dsW2T_acc[:] += jnp.dot(rh.T, da, preferred_element_type=jnp.float32,
-                            precision=precision)
-    dh[:] = dh_prev
-
-    @pl.when(t == T - 1)
-    def _final():
-        dsWT_ref[0] = dsWT_acc[:]
-        dsW2T_ref[0] = dsW2T_acc[:]
-
-
-def _pallas_scan_bwd(xp, mask, sWT, sW2T, reverse, g, h_out, precision,
-                     block=None):
-    T, B0, threeS = xp.shape
-    S = threeS // 3
-    BB = _batch_block(B0, block)
-    B, xp, mask, g, h_out = _pad_batch(BB, xp, mask.reshape(T, B0, 1), g,
-                                       h_out)
-    nB = B // BB
-    # h_{t-1} in the *scan* order: shift h_out one step towards the scan start
+    dxp, rh = _call(_bwd_kernel,
+                    (xp, mask, _gate_weights(sW, sW2, dtype), h_out, g),
+                    (jax.ShapeDtypeStruct((T, B, threeS), jnp.float32),
+                     jax.ShapeDtypeStruct((T, B, S), jnp.float32)),
+                    interpret, "gru_backward", dtype, reverse=reverse,
+                    precision=precision)
+    zero = jnp.zeros((1, B, S), h_out.dtype)
     if reverse:
-        h_prev = jnp.concatenate(
-            [h_out[1:], jnp.zeros((1, B, S), jnp.float32)], axis=0)
-        index_map = lambda b, t: (t, b, 0)           # bwd visits time 0..T-1
+        h_prev = jnp.concatenate([h_out[1:], zero], axis=0)
     else:
-        h_prev = jnp.concatenate(
-            [jnp.zeros((1, B, S), jnp.float32), h_out[:-1]], axis=0)
-        index_map = lambda b, t: (T - 1 - t, b, 0)   # bwd visits T-1..0
-    const = lambda b, t: (0, 0)
-    # each batch block writes its weight cotangent to its own leading slot
-    # (summed below — cross-block accumulation through HBM would race)
-    wslot = lambda b, t: (b, 0, 0)
-
-    kernel = partial(_bwd_kernel, S=S, B=BB, precision=precision)
-    dxp, dsWT, dsW2T = pl.pallas_call(
-        kernel,
-        grid=(nB, T),
-        in_specs=[
-            pl.BlockSpec((1, BB, threeS), index_map, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BB, S), index_map, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BB, S), index_map, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BB, S), index_map, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BB, 1), index_map, memory_space=pltpu.VMEM),
-            pl.BlockSpec((S, 2 * S), const, memory_space=pltpu.VMEM),
-            pl.BlockSpec((S, S), const, memory_space=pltpu.VMEM),
-            pl.BlockSpec((2 * S, S), const, memory_space=pltpu.VMEM),
-            pl.BlockSpec((S, S), const, memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, BB, threeS), index_map,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, S, 2 * S), wslot, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, S, S), wslot, memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((T, B, threeS), jnp.float32),
-            jax.ShapeDtypeStruct((nB, S, 2 * S), jnp.float32),
-            jax.ShapeDtypeStruct((nB, S, S), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((BB, S), jnp.float32),
-                        pltpu.VMEM((S, 2 * S), jnp.float32),
-                        pltpu.VMEM((S, S), jnp.float32)],
-        interpret=jax.default_backend() not in ("tpu",),
-    )(xp, h_out, h_prev, g, mask, sWT, sW2T, sWT.T, sW2T.T)
-    # padded rows carry mask 0: dxp is zero there and they add nothing to
-    # the weight cotangents (see _bwd_kernel's dh_eff gating)
-    return (dxp[:, :B0] if B != B0 else dxp), dsWT.sum(0), dsW2T.sum(0)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(3,))
-def gru_fused(xp, sW_pair, mask, reverse):
-    """mask: int8 (T, B); pass all-ones for unmasked runs."""
-    sWT, sW2T = sW_pair
-    return _pallas_scan(xp, mask, sWT, sW2T, reverse,
-                        jax.lax.Precision.HIGHEST)
-
-
-def _fwd(xp, sW_pair, mask, reverse):
-    out = gru_fused(xp, sW_pair, mask, reverse)
-    return out, (xp, sW_pair, mask, out)
-
-
-def _bwd(reverse, res, g):
-    xp, sW_pair, mask, h_out = res
-    dxp, dsWT, dsW2T = _pallas_scan_bwd(
-        xp, mask, sW_pair[0], sW_pair[1], reverse, g, h_out,
-        jax.lax.Precision.HIGHEST)
-    return dxp, (dsWT, dsW2T), None
+        h_prev = jnp.concatenate([zero, h_out[:-1]], axis=0)
+    # recurrent-weight cotangents: one (S, T*B) x (T*B, S) product each
+    wgrad = lambda d, a: jnp.einsum("tbo,tbi->oi", d.astype(dtype),
+                                    a.astype(dtype), precision=precision,
+                                    preferred_element_type=jnp.float32)
+    dsW = jnp.stack([wgrad(dxp[:, :, :S], h_prev),
+                     wgrad(dxp[:, :, S:2 * S], h_prev)])
+    dsW2 = wgrad(dxp[:, :, 2 * S:], rh)
+    return dxp, dsW.astype(sW.dtype), dsW2.astype(sW2.dtype), None
 
 
 gru_fused.defvjp(_fwd, _bwd)
 
 
-def run_gru_fused(params, xp, reverse=False, mask=None):
+def reference_scan(xp, sW, sW2, mask, reverse, dtype, precision):
+    """Plain XLA scan of the same recurrence (the parity reference): matmul
+    operands in ``dtype`` at ``precision``, float32 accumulation."""
+    S = sW2.shape[0]
+
+    def dot(a, W):
+        return jnp.dot(a.astype(dtype), W.T.astype(dtype),
+                       precision=precision,
+                       preferred_element_type=jnp.float32)
+
+    def step(h, inp):
+        lp, m = inp
+        z = jax.nn.sigmoid(lp[:, :S] + dot(h, sW[0]))
+        r = jax.nn.sigmoid(lp[:, S:2 * S] + dot(h, sW[1]))
+        hbar = jnp.tanh(lp[:, 2 * S:] + dot(r * h, sW2))
+        new = jnp.where(m[:, None] != 0, z * h + (1 - z) * hbar, h)
+        return new, new
+
+    h0 = jnp.zeros((xp.shape[1], S), jnp.float32)
+    return jax.lax.scan(step, h0, (xp, mask), reverse=reverse)[1]
+
+
+def matmul_precision():
+    """The float32 matmul precision currently asked of JAX (read at trace
+    time): HIGHEST for "highest"/"float32", else DEFAULT (TF32 on GPU)."""
+    p = jax.config.jax_default_matmul_precision
+    return (jax.lax.Precision.HIGHEST
+            if str(p).lower() in ("highest", "float32", "precision.highest")
+            else jax.lax.Precision.DEFAULT)
+
+
+def run_gru_fused(params, xp, reverse=False, mask=None, interpret=False):
     """Run the fused GRU over a precomputed input projection.
 
     :param params: Gru parameter pytree (gate-major sW (2,S,S), sW2 (S,S))
     :param xp: (T, B, 3S) input projection (x @ iW^T + b)
     :param mask: optional (T, B) bool valid-step mask
     """
-    S = params["sW2"].shape[0]
-    sWT = params["sW"].reshape(2 * S, S).T
-    sW2T = params["sW2"].T
-    if mask is None:
-        mask = jnp.ones(xp.shape[:2], jnp.int8)
-    else:
-        mask = mask.astype(jnp.int8)
-    return gru_fused(xp, (sWT, sW2T), mask, reverse)
+    mask = (jnp.ones(xp.shape[:2], jnp.int8) if mask is None
+            else mask.astype(jnp.int8))
+    dtype = np.dtype(config.compute_dtype)
+    return gru_fused(xp.astype(jnp.float32), params["sW"], params["sW2"],
+                     mask, reverse, matmul_precision(), dtype, interpret)

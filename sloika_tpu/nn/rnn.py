@@ -1,15 +1,15 @@
 """Recurrent layers as `jax.lax.scan` programs.
 
-TPU-native equivalents of the recurrent zoo in
+JAX equivalents of the recurrent zoo in
 /root/reference/sloika/layers.py (Recurrent :468, Scrn :523, Lstm :599,
 LstmCIFG :700, LstmO :801, Forget :886, Gru :952, Mut1 :1024, Mut2 :1123,
 Mut3 :1226, Genmut :1334).
 
-TPU-first design decisions:
+Design decisions:
 
 * The input projection (``x @ iW^T + b``) is hoisted out of the scan and
   computed as one large ``(time*batch, insize) x (insize, ngate*size)``
-  matmul that XLA tiles onto the MXU; the scan body only contains the
+  matmul on the tensor cores; the scan body only contains the
   state-dependent matmul.  Identical math to the reference's per-step fused
   tensordots (layers.py:677-691).
 * ``Reverse`` runs cells with ``lax.scan(reverse=True)`` instead of the
@@ -30,7 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sloika_tpu import activations
+from sloika_tpu import activations, backend
 from sloika_tpu.config import jax_dtype
 from sloika_tpu.nn.core import (Layer, register, zeros_init, affine,
                                 activation_name, activation_from_name)
@@ -65,7 +65,7 @@ class RNNBase(Layer):
             # Contract for masked steps: the carried STATE reverts, but the
             # emitted output value at a masked position is unspecified —
             # this scan emits the freshly computed value, the fused Pallas
-            # cells emit the carried state.  Consumers must mask padded
+            # GRU emits the carried state.  Consumers must mask padded
             # positions (apply_with_lengths callers do); parity tests
             # compare under the mask.
             def step_fn(state, xm):
@@ -160,38 +160,27 @@ class Gru(RNNBase):
 
     def __init__(self, insize, size, init=zeros_init, has_bias=False,
                  fun=activations.tanh, gatefun=activations.sigmoid, name="GRU",
-                 fused=None):
+                 impl="auto"):
         self._insize, self._size, self._name = insize, size, name
         self.has_bias = has_bias
         self.fun = fun
         self.gatefun = gatefun
         self._init = init
-        #: use the fused Pallas recurrence (nn.pallas_gru) on TPU; None
-        #: defers to the SLOIKA_TPU_FUSED_GRU env switch
-        self.fused = fused
-
-    def _use_fused(self):
-        if self.fun is not activations.tanh or \
-                self.gatefun is not activations.sigmoid:
-            return False
-        if self.fused is None:
-            import os
-            env = os.environ.get("SLOIKA_TPU_FUSED_GRU", "auto")
-            if env == "0":
-                return False
-            if env == "1":
-                return True
-            # auto: TPU only (measured 1.3x train step / 1.2x forward on
-            # v5e), and only for sizes the kernel has been validated at
-            return jax.default_backend() == "tpu" and self.size >= 32
-        return bool(self.fused)
+        #: recurrence implementation, resolved here by
+        #: backend.resolve_impl: "auto" is the fused Pallas kernel
+        #: (nn.pallas_gru) on a GPU, the XLA scan on the CPU; "interpret"
+        #: runs the kernel in the interpreter
+        self.impl = backend.resolve_impl(impl)
 
     def apply(self, params, x, reverse=False, mask=None):
-        if self._use_fused():
+        standard = (self.fun is activations.tanh
+                    and self.gatefun is activations.sigmoid)
+        if self.impl != "xla" and standard:
             from sloika_tpu.nn import pallas_gru
             xp = self.input_proj(params, x)
-            return pallas_gru.run_gru_fused(params, xp, reverse=reverse,
-                                            mask=mask)
+            return pallas_gru.run_gru_fused(
+                params, xp, reverse=reverse, mask=mask,
+                interpret=self.impl == "interpret")
         return super().apply(params, x, reverse=reverse, mask=mask)
 
     def init(self, key):
@@ -234,39 +223,13 @@ class Lstm(RNNBase):
 
     def __init__(self, insize, size, init=zeros_init, has_bias=False,
                  has_peep=False, fun=activations.tanh,
-                 gatefun=activations.sigmoid, name="LSTM", fused=None):
+                 gatefun=activations.sigmoid, name="LSTM"):
         self._insize, self._size, self._name = insize, size, name
         self.has_bias = has_bias
         self.has_peep = has_peep
         self.fun = fun
         self.gatefun = gatefun
         self._init = init
-        #: use the fused Pallas recurrence (nn.pallas_lstm) on TPU; None
-        #: defers to the SLOIKA_TPU_FUSED_LSTM env switch
-        self.fused = fused
-
-    def _use_fused(self):
-        if self.fun is not activations.tanh or \
-                self.gatefun is not activations.sigmoid:
-            return False
-        if self.fused is None:
-            import os
-            env = os.environ.get("SLOIKA_TPU_FUSED_LSTM", "auto")
-            if env == "0":
-                return False
-            if env == "1":
-                return True
-            return jax.default_backend() == "tpu" and self.size >= 32
-        return bool(self.fused)
-
-    def apply(self, params, x, reverse=False, mask=None):
-        if self._use_fused():
-            from sloika_tpu.nn import pallas_lstm
-            xp = self.input_proj(params, x)
-            return pallas_lstm.run_lstm_fused(params, xp, reverse=reverse,
-                                              mask=mask,
-                                              has_peep=self.has_peep)
-        return super().apply(params, x, reverse=reverse, mask=mask)
 
     _NGATE = 4
     _FORGET_GATE = 2

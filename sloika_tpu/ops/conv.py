@@ -4,7 +4,7 @@ Functional equivalents of /root/reference/sloika/conv.py:10-135, built on
 XLA's native convolution (``lax.conv_general_dilated``) and
 ``lax.reduce_window`` instead of the reference's NCHW-transpose-into-conv2d
 dance.  Inputs are ``(time, batch, features)``; the convolution itself runs
-batch-major so XLA tiles it onto the MXU.
+batch-major so XLA runs it as one large matmul.
 """
 import jax
 import jax.numpy as jnp

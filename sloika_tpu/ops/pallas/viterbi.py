@@ -1,613 +1,185 @@
-"""Pallas TPU kernel for the kmer-transducer Viterbi forward pass.
+"""Pallas (Triton route) kernel for the kmer-transducer Viterbi decode.
 
-The DP is sequential in time, so the kernel runs with ``grid=(T,)`` — Pallas
-TPU grids execute sequentially on a core, letting the (batch, nkmer) score
-vector live in VMEM scratch across steps while Pallas double-buffers the
-per-step posterior loads and traceback stores to HBM automatically.
+Same maths and tie-breaking as :func:`sloika_tpu.ops.decode_jax.viterbi`
+(reference decode.py:39-93), laid out for a GPU:
 
-Per step (identical math to decode_np.viterbi / decode_jax.viterbi,
-reference decode.py:39-93), reformulated for the TPU's layout rules:
-
-* the predecessor max over the ``n`` leading-base groups is an elementwise
-  max over contiguous 2-D lane slices (state ``g*nrem + r`` lives at lane
-  ``g*nrem + r``), with the arg-group carried by compare/select;
-* the per-group results are broadcast back to all ``K`` destinations with a
-  small MXU matmul against a constant 0/1 expansion matrix
-  ``E[r, i] = [i // nbase == r]`` — Mosaic supports no elementwise
-  lane-repeat, but a (B, nrem) x (nrem, K) matmul is essentially free;
-* traceback stores a compact int8 *code* per destination instead of the
-  full predecessor index: -1 = stay, g in [0, nbase) = step from group g,
-  nbase + g = skip from group g.  The predecessor state is reconstructed in
-  the backward gather as ``g * nrem + state // n`` — 4x less traceback
-  bandwidth than int32 indices;
-* the stay/blank posterior column arrives as a separate (B, 1) input so the
-  kmer block stays 128-lane aligned.
-
-VMEM budget: the batch is blocked (outer grid dimension; 512 rows for
-bfloat16 posterior streams, 256 for float32) so the working set — scores
-scratch, double-buffered posterior loads and traceback stores, the two
-expansion matrices — stays bounded regardless of device batch size; the
-(T, B, K) int8 traceback streams to HBM.
+* each program owns ``BB`` batch rows and runs the whole DP inside the
+  kernel (``fori_loop`` over time), so the (BB, K) score vector never
+  leaves registers; one launch replaces the XLA scan's per-step kernels;
+* the log of the posterior is taken in the kernel, so no second full-size
+  log tensor is materialised; the posterior may stream as bfloat16 and is
+  upcast to float32 before any arithmetic;
+* the step maximum over the ``nbase`` leading-base groups is a reduction
+  over a (BB, nbase, K/nbase) view of the scores; the skip maximum is
+  derived from the step maxima (the ``nbase**2`` skip groups nest inside
+  the step groups), with the first-wins tie-break of a direct argmax;
+* the traceback is one 8-bit *code* per destination state instead of an
+  int32 predecessor index: -1 = stay, g in [0, nbase) = step from group g,
+  nbase + g = skip from group g.  The predecessor is rebuilt in the
+  backward pass as ``g * nrem + state // n``.  Four codes (plus one) are
+  packed into each int32 word: an int8 array of the traceback's 2^31 to
+  2^32 elements (B=1024 windows) would get 32-bit element offsets from the
+  Triton lowering, which overflow; int32 words keep every offset in range;
+* the backward pass runs in the same program after the forward loop: it
+  reads back its own rows' codes, one gathered byte per row and step, and
+  writes the state path and move mask directly in (B, T) layout;
+* the stay column (column 0 of the 1025-wide posterior row) is loaded as
+  its own (BB,) stream, so every other load is a power-of-two (BB, K)
+  block, as Triton requires.
 """
 from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from sloika_tpu import variables as sv
 
 _ETA = 1e-10
 
-
-def _expansion_matrix(nrem, K, n):
-    """E[r, i] = 1 where destination i draws from group element i // n."""
-    e = np.zeros((nrem, K), dtype=np.float32)
-    e[np.arange(K) // n, np.arange(K)] = 1.0
-    return e
+#: batch rows per program and warps per program: 4 rows on 4 warps
+#: measured fastest at B=1024 on an H100 (256 programs; docs/PERF.md)
+BLOCK_ROWS = 4
+NUM_WARPS = 4
 
 
-def _expand_scores(mx, E, B, nrem, n, mode):
-    """Broadcast the (B, nrem) group maxima to (B, K): out[b, i] = mx[b, i//n].
-
-    The expansion must be *exact* in f32 — scores are log-prob sums whose
-    close ties decide the traceback — so the plain bf16 MXU pass is out.
-    Three exact routes, selected by ``mode`` (measured on v5e, B=256):
-
-    * ``"highest"``: one f32 dot at HIGHEST precision (6 bf16 passes);
-    * ``"split3"``: split the f32 mantissa into three bf16 parts
-      (8+8+8 >= 24 bits, exact by construction) and run three DEFAULT
-      single-pass dots against the 0/1 matrix — the f32 accumulator then
-      reassembles hi+mid+lo exactly, 2x fewer MXU passes than HIGHEST;
-    * ``"reshape"``: no MXU at all — broadcast each lane n times via a
-      trailing unit dim and collapse (Mosaic lane-interleave relayout).
-    """
-    if mode == "reshape":
-        return jnp.reshape(jnp.broadcast_to(mx[:, :, None], (B, nrem, n)),
-                           (B, nrem * n))
-    if mode == "bf16":
-        # timing diagnostic only — loses 16 mantissa bits, NOT exact
-        return jnp.dot(mx.astype(jnp.bfloat16), E.astype(jnp.bfloat16),
-                       preferred_element_type=jnp.float32)
-    if mode == "split3":
-        hi = mx.astype(jnp.bfloat16)
-        r1 = mx - hi.astype(jnp.float32)
-        mid = r1.astype(jnp.bfloat16)
-        lo = (r1 - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-        Eb = E.astype(jnp.bfloat16)
-        out = jnp.dot(hi, Eb, preferred_element_type=jnp.float32)
-        out += jnp.dot(mid, Eb, preferred_element_type=jnp.float32)
-        out += jnp.dot(lo, Eb, preferred_element_type=jnp.float32)
-        return out
-    return jnp.dot(mx, E, preferred_element_type=jnp.float32,
-                   precision=jax.lax.Precision.HIGHEST)
+def _expand(x, n):
+    """(BB, m) -> (BB, m*n) with out[:, i] = x[:, i // n]."""
+    BB, m = x.shape
+    return jnp.broadcast_to(x[:, :, None], (BB, m, n)).reshape(BB, m * n)
 
 
-def _group_reduce(p, n, nrem, B):
-    """(max, first-wins arg-group), both (B, nrem), over the ``n`` leading-
-    base groups: mx[r] = max_g p[g*nrem + r]."""
-    mx = p[:, 0:nrem]
-    am = jnp.zeros((B, nrem), jnp.float32)
-    for g in range(1, n):
-        cand = p[:, g * nrem:(g + 1) * nrem]
-        better = cand > mx
-        mx = jnp.where(better, cand, mx)
-        am = jnp.where(better, jnp.float32(g), am)
+def _group_max(p, n):
+    """(max, first-wins arg-group) over ``n`` leading-base groups of the
+    (BB, K) scores: mx[:, r] = max_g p[:, g*(K/n) + r]."""
+    BB, K = p.shape
+    p3 = p.reshape(BB, n, K // n)
+    mx = jnp.max(p3, axis=1)
+    g = jax.lax.broadcasted_iota(jnp.int32, p3.shape, 1)
+    am = jnp.min(jnp.where(p3 == mx[:, None, :], g, n), axis=1)
     return mx, am
 
 
-def _expand_group(mx, am, E, B, nrem, n, expand):
-    """Broadcast (max, arg-group) from (B, nrem) to (B, K)."""
-    score = _expand_scores(mx, E, B, nrem, n, expand)
-    # the group indices are small integers, exact in bf16, so their
-    # broadcast can always use the fast single-pass dot
-    if expand == "reshape":
-        group = jnp.reshape(jnp.broadcast_to(am[:, :, None], (B, nrem, n)),
-                            (B, nrem * n))
-    else:
-        group = jnp.dot(am, E, preferred_element_type=jnp.float32)
-    return score, group
+def _kernel(post_ref, tb_ref, score_ref, path_ref, moved_ref, *, T, B, BB,
+            K, nbase, skip_pen, take_log, interpret):
+    nstep, nskip = nbase, nbase * nbase
+    rows = pl.program_id(0) * BB + jnp.arange(BB, dtype=jnp.int32)
+    # rows past B (the last program's tail) are masked out of every load
+    # and store
+    valid = rows < B
+    cols = jnp.arange(K, dtype=jnp.int32)
+    vmask = jnp.broadcast_to(valid[:, None], (BB, K))
+    words = jnp.arange(K // 4, dtype=jnp.int32)
+    wmask = jnp.broadcast_to(valid[:, None], (BB, K // 4))
+    shift = 8 * jax.lax.broadcasted_iota(jnp.int32, (BB, K // 4, 4), 2)
 
-
-def _group_max(p, n, nrem, B, E, expand):
-    """(max, arg-group) over leading-base groups, broadcast to (B, K)."""
-    mx, am = _group_reduce(p, n, nrem, B)
-    return _expand_group(mx, am, E, B, nrem, n, expand)
-
-
-def _derived_skip_reduce(mx_step, am_step, nstep, nrem_skip, B):
-    """Skip-group (max, arg-group) derived from the step reduction.
-
-    The ``nstep**2`` skip groups nest inside the ``nstep`` step groups:
-    predecessor ``h*nrem_skip + s`` equals ``g*nrem_step + (q*nrem_skip + s)``
-    with ``h = g*nstep + q``.  So the skip maxima are a second ``nstep``-way
-    reduction over sub-slices of the step maxima — 3 slice compares instead
-    of 15 for nbase=4, and no second pass over the full (B, K) scores.
-
-    Tie-breaking must still match the direct first-wins argmax over ``h``
-    (lexicographic (g, q) minimum): on equal scores the candidate with the
-    smaller level-1 group wins; ``>`` keeps the earlier q when both agree.
-    """
-    mx = mx_step[:, 0:nrem_skip]
-    ag = am_step[:, 0:nrem_skip]
-    aq = jnp.zeros((B, nrem_skip), jnp.float32)
-    for q in range(1, nstep):
-        cand = mx_step[:, q * nrem_skip:(q + 1) * nrem_skip]
-        cand_g = am_step[:, q * nrem_skip:(q + 1) * nrem_skip]
-        better = (cand > mx) | ((cand == mx) & (cand_g < ag))
-        mx = jnp.where(better, cand, mx)
-        ag = jnp.where(better, cand_g, ag)
-        aq = jnp.where(better, jnp.float32(q), aq)
-    return mx, ag * nstep + aq
-
-
-def _interleave_rows(x, rep):
-    """(N, B) -> (N*rep, B) with out[i] = x[i // rep] — the state-major
-    twin of :func:`_expand_scores`.  Rows live on sublanes, so the
-    interleaved repeat is a broadcast + sublane retiling (pure copies, no
-    MXU and no exactness machinery needed)."""
-    N, B = x.shape
-    return jnp.reshape(jnp.broadcast_to(x[:, None, :], (N, rep, B)),
-                       (N * rep, B))
-
-
-def _group_reduce_sm(p, n, nrem):
-    """State-major (K, B) twin of :func:`_group_reduce`: (max, first-wins
-    arg-group) over the ``n`` leading-base groups, both (nrem, B)."""
-    B = p.shape[1]
-    mx = p[0:nrem]
-    am = jnp.zeros((nrem, B), jnp.float32)
-    for g in range(1, n):
-        cand = p[g * nrem:(g + 1) * nrem]
-        better = cand > mx
-        mx = jnp.where(better, cand, mx)
-        am = jnp.where(better, jnp.float32(g), am)
-    return mx, am
-
-
-def _derived_skip_reduce_sm(mx_step, am_step, nstep, nrem_skip):
-    """State-major twin of :func:`_derived_skip_reduce` (same tie-breaks)."""
-    B = mx_step.shape[1]
-    mx = mx_step[0:nrem_skip]
-    ag = am_step[0:nrem_skip]
-    aq = jnp.zeros((nrem_skip, B), jnp.float32)
-    for q in range(1, nstep):
-        cand = mx_step[q * nrem_skip:(q + 1) * nrem_skip]
-        cand_g = am_step[q * nrem_skip:(q + 1) * nrem_skip]
-        better = (cand > mx) | ((cand == mx) & (cand_g < ag))
-        mx = jnp.where(better, cand, mx)
-        ag = jnp.where(better, cand_g, ag)
-        aq = jnp.where(better, jnp.float32(q), aq)
-    return mx, ag * nstep + aq
-
-
-def _fwd_kernel_sm(lpk_ref, lps_ref, tb_ref, vfinal_ref, vscore, *,
-                   nstep, nskip, skip_pen, K, take_log, unroll, T):
-    """State-major forward kernel: scores live as (K, B) — kmer states on
-    sublanes, batch on lanes — so the group-maxima broadcasts that cost
-    MXU passes in the lane-major kernel become sublane interleaves
-    (:func:`_interleave_rows`), with identical math and tie-breaking."""
-    tblk = pl.program_id(1)
-    nblk = pl.num_programs(1)
-
-    def _row(j):
-        lpk = lpk_ref[j].astype(jnp.float32)   # (K, B) kmer posteriors
-        lps = lps_ref[j].astype(jnp.float32)   # (1, B) stay posterior
+    def load_post(t):
+        lpk = plgpu.load(post_ref.at[t, rows[:, None], 1 + cols[None, :]],
+                         mask=vmask, other=1.0)
+        lps = plgpu.load(post_ref.at[t, rows, 0], mask=valid, other=1.0)
+        lpk = lpk.astype(jnp.float32)
+        lps = lps.astype(jnp.float32)
         if take_log:
             lpk = jnp.log(lpk + _ETA)
             lps = jnp.log(lps + _ETA)
         return lpk, lps
 
-    def _step(j):
-        lpk, lps = _row(j)
-        p = vscore[:]
-        nrem_step = K // nstep
-        mx_step, am_step = _group_reduce_sm(p, nstep, nrem_step)
+    def fwd(t, v):
+        lpk, lps = load_post(t)
+        mx_step, am_step = _group_max(v, nstep)
         if skip_pen == float("inf"):
             m, c = mx_step, am_step
         else:
-            mx_skip, am_skip = _derived_skip_reduce_sm(
-                mx_step, am_step, nstep, K // nskip)
-            sk = _interleave_rows(mx_skip, nstep) - skip_pen
-            gk = _interleave_rows(am_skip, nstep)
-            better_step = mx_step > sk
-            m = jnp.maximum(mx_step, sk)
-            c = jnp.where(better_step, am_step, jnp.float32(nstep) + gk)
+            # skip group h = g*nstep + q nests inside step group g:
+            # reduce the step maxima over q, tie-break on the smallest h
+            nrem = K // nskip
+            ms3 = mx_step.reshape(BB, nstep, nrem)
+            mx_skip = jnp.max(ms3, axis=1)
+            q = jax.lax.broadcasted_iota(jnp.int32, ms3.shape, 1)
+            h = am_step.reshape(BB, nstep, nrem) * nstep + q
+            am_skip = jnp.min(jnp.where(ms3 == mx_skip[:, None, :], h, nskip),
+                              axis=1)
+            # both branches depend on the destination only through its
+            # step group, so decide step vs skip at that resolution
+            sk = _expand(mx_skip, nstep) - skip_pen
+            better = mx_step > sk
+            m = jnp.where(better, mx_step, sk)
+            c = jnp.where(better, am_step, nstep + _expand(am_skip, nstep))
+        new = lpk + _expand(m, nstep)
+        stay = v + lps[:, None]
+        code = jnp.where(new > stay, _expand(c, nstep), -1)
+        packed = jnp.sum((code + 1).reshape(BB, K // 4, 4) << shift, axis=2)
+        plgpu.store(tb_ref.at[t, rows[:, None], words[None, :]], packed,
+                    mask=wmask)
+        return jnp.maximum(new, stay)
 
-        score = _interleave_rows(m, nstep)
-        group = _interleave_rows(c, nstep)
-        new = lpk + score
+    v0, _ = load_post(0)
+    v = jax.lax.fori_loop(1, T, fwd, v0)
 
-        score_stay = p + lps
-        code = jnp.where(new > score_stay, group, jnp.float32(-1))
-        vscore[:] = jnp.maximum(new, score_stay)
-        tb_ref[j] = code.astype(jnp.int8)
+    score = jnp.max(v, axis=1)
+    last = jnp.min(jnp.where(v == score[:, None], cols[None, :], K), axis=1)
+    plgpu.store(score_ref.at[rows], score, mask=valid)
+    if not interpret:
+        # the codes this program's threads stored above are read back
+        # below, by other threads of the same program
+        plgpu.debug_barrier()
 
-    for j in range(unroll):
-        if j == 0:
-            @pl.when(tblk == 0)
-            def _init():
-                lpk, _ = _row(0)
-                vscore[:] = lpk
-                tb_ref[0] = jnp.full_like(tb_ref[0], -1)
+    def back(i, state):
+        t = T - 1 - i
+        w = plgpu.load(tb_ref.at[t, rows, state // 4], mask=valid, other=0)
+        c = ((w >> (8 * (state % 4))) & 255) - 1
+        moved = c >= 0
+        prev = jnp.where(c < nstep,
+                         c * (K // nstep) + state // nstep,
+                         (c - nstep) * (K // nskip) + state // nskip)
+        plgpu.store(path_ref.at[rows, t], state, mask=valid)
+        plgpu.store(moved_ref.at[rows, t], moved.astype(jnp.int8), mask=valid)
+        return jnp.where(moved, prev, state)
 
-            @pl.when(tblk > 0)
-            def _first_in_block():
-                _step(0)
-        else:
-            @pl.when(tblk * unroll + j < T)
-            def _rest(j=j):
-                _step(j)
-
-    @pl.when(tblk == nblk - 1)
-    def _final():
-        vfinal_ref[:] = vscore[:]
-
-
-def viterbi_forward_sm(lpost_sm, klen, skip_pen=0.0, nbase=4,
-                       take_log=False, unroll=None):
-    """State-major Pallas forward: ``lpost_sm`` is (T, nstate, B) with
-    column 0 the stay posterior.  Returns (vfinal (K, B), traceback
-    (T, K, B) int8) — the state-major twin of :func:`viterbi_forward`.
-    """
-    T, nst, B = lpost_sm.shape
-    K = sv.nkmer(klen, nbase=nbase)
-    assert nst == K + 1
-
-    lp_kmer = lpost_sm[:, 1:, :]
-    lp_stay = lpost_sm[:, 0:1, :]
-
-    if unroll is None:
-        unroll = _default_unroll()
-    U = max(1, int(unroll))
-
-    blk = _default_block()
-    if jnp.dtype(lpost_sm.dtype).itemsize >= 4:
-        blk = min(blk, 256)
-    BB = min(B, max(128, blk // U))
-    Bp = -(-B // BB) * BB
-    nblk = -(-T // U)
-    Tp = nblk * U
-    if Bp != B or Tp != T:
-        lp_kmer = jnp.pad(lp_kmer, ((0, Tp - T), (0, 0), (0, Bp - B)))
-        lp_stay = jnp.pad(lp_stay, ((0, Tp - T), (0, 0), (0, Bp - B)))
-
-    kernel = partial(_fwd_kernel_sm, nstep=nbase, nskip=nbase * nbase,
-                     skip_pen=float(skip_pen), K=K, take_log=take_log,
-                     unroll=U, T=T)
-    traceback, vfinal = pl.pallas_call(
-        kernel,
-        grid=(Bp // BB, nblk),
-        in_specs=[
-            pl.BlockSpec((U, K, BB), lambda b, t: (t, 0, b),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((U, 1, BB), lambda b, t: (t, 0, b),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((U, K, BB), lambda b, t: (t, 0, b),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, BB), lambda b, t: (0, b),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((Tp, K, Bp), jnp.int8),
-            jax.ShapeDtypeStruct((K, Bp), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((K, BB), jnp.float32)],
-        interpret=_use_interpret(),
-    )(lp_kmer, lp_stay)
-    return vfinal[:, :B], traceback[:T, :, :B]
+    first = jax.lax.fori_loop(0, T - 1, back, last)
+    plgpu.store(path_ref.at[rows, 0], first, mask=valid)
+    plgpu.store(moved_ref.at[rows, 0], jnp.zeros((BB,), jnp.int8),
+                mask=valid)
 
 
-def _fwd_kernel(lpk_ref, lps_ref, estep_ref, eskip_ref, tb_ref, vfinal_ref,
-                vscore, *, nstep, nskip, skip_pen, K, B, take_log, expand,
-                unroll, T, skip_max):
-    # grid = (batch blocks, time blocks): the last dimension iterates
-    # fastest, so each batch block sweeps the whole DP (scratch
-    # re-initialised at t == 0) before the next block starts.  Each grid
-    # step consumes ``unroll`` consecutive time rows from one DMA'd block,
-    # amortising the per-step grid/DMA setup over several DP updates.
-    tblk = pl.program_id(1)
-    nblk = pl.num_programs(1)
-
-    def _row(j):
-        # posteriors may stream in bfloat16 (half the dominant HBM->VMEM
-        # traffic); all arithmetic is f32 after the upcast, so results are
-        # exact w.r.t. the rounded inputs
-        lpk = lpk_ref[j].astype(jnp.float32)   # (B, K) kmer posteriors
-        lps = lps_ref[j].astype(jnp.float32)   # (B, 1) stay posterior
-        if take_log:
-            # log taken in-kernel (VPU, hidden under the posterior DMA) so
-            # the caller streams raw probabilities — avoids materialising a
-            # second full-size (T, B, K) log tensor in HBM
-            lpk = jnp.log(lpk + _ETA)
-            lps = jnp.log(lps + _ETA)
-        return lpk, lps
-
-    def _step(j):
-        lpk, lps = _row(j)
-        p = vscore[:]
-        nrem_step = K // nstep
-        mx_step, am_step = _group_reduce(p, nstep, nrem_step, B)
-        if skip_pen == float("inf"):
-            # statically disabled skip transitions (also the timing
-            # diagnostic that isolates the skip group-max cost)
-            m, c = mx_step, am_step
-        else:
-            if skip_max == "derived":
-                mx_skip, am_skip = _derived_skip_reduce(
-                    mx_step, am_step, nstep, K // nskip, B)
-            else:
-                mx_skip, am_skip = _group_reduce(p, nskip, K // nskip, B)
-            # Fold skip into step *at step-group resolution*: both the step
-            # and skip scores of destination i depend only on its step group
-            # r = i // nstep (score_skip[i] = mx_skip[r // nstep]), so the
-            # step/skip winner is constant across the nstep destinations
-            # sharing r.  Deciding it on (B, K/nstep) lanes and expanding the
-            # combined (max, code) ONCE halves the full-width MXU expansion
-            # passes vs expanding each branch separately — bit-identical by
-            # construction (the expansions are exact copies).
-            sk, gk = _expand_group(mx_skip, am_skip, eskip_ref[:],
-                                   B, K // nskip, nstep, expand)
-            sk = sk - skip_pen
-            better_step = mx_step > sk
-            m = jnp.maximum(mx_step, sk)
-            c = jnp.where(better_step, am_step, jnp.float32(nstep) + gk)
-
-        score, group = _expand_group(m, c, estep_ref[:], B, nrem_step,
-                                     nstep, expand)
-        new = lpk + score
-        code = group
-
-        score_stay = p + lps
-        code = jnp.where(new > score_stay, code, jnp.float32(-1))
-        vscore[:] = jnp.maximum(new, score_stay)
-        tb_ref[j] = code.astype(jnp.int8)
-
-    for j in range(unroll):
-        if j == 0:
-            @pl.when(tblk == 0)
-            def _init():
-                lpk, _ = _row(0)
-                vscore[:] = lpk
-                tb_ref[0] = jnp.full((B, K), -1, dtype=jnp.int8)
-
-            @pl.when(tblk > 0)
-            def _first_in_block():
-                _step(0)
-        else:
-            # tail-block rows beyond the real T are skipped (their
-            # traceback rows are sliced off by the caller)
-            @pl.when(tblk * unroll + j < T)
-            def _rest(j=j):
-                _step(j)
-
-    @pl.when(tblk == nblk - 1)
-    def _final():
-        vfinal_ref[:] = vscore[:]
-
-
-def viterbi_forward(lpost, klen, skip_pen=0.0, nbase=4, time_major=False,
-                    take_log=False, expand=None, unroll=None, skip_max=None):
-    """Pallas forward pass.
-
-    :param lpost: (B, T, nstate) — or, with ``time_major``, (T, B, nstate) —
-        posteriors, *log*-domain unless ``take_log`` (column 0 = stay).
-        The time-major + take_log form is the transfer-lean production
-        entry: the model forward's output feeds the kernel without a
-        transpose, and the log runs in-kernel, so no second full-size
-        tensor is ever materialised in HBM.
-    :returns: (vfinal (B, K) final scores, traceback codes (T, B, K) int8)
-    """
-    if time_major:
-        T, B, nst = lpost.shape
-        lpost_t = lpost
-    else:
-        B, T, nst = lpost.shape
-        lpost_t = jnp.moveaxis(lpost, 1, 0)  # (T, B, nstate)
-    K = sv.nkmer(klen, nbase=nbase)
-    assert nst == K + 1
-
-    lp_kmer = lpost_t[:, :, 1:]
-    lp_stay = lpost_t[:, :, 0:1]
-
-    if expand is None:
-        expand = _default_expand()
-    if unroll is None:
-        unroll = _default_unroll()
-    if skip_max is None:
-        skip_max = _default_skip_max()
-    U = max(1, int(unroll))
-
-    # block the batch so the VMEM working set (scores scratch + streamed
-    # posterior/traceback buffers) stays bounded at large device batches.
-    # The double-buffered posterior block is U x BB x K x itemsize, so the
-    # default block halves for 4-byte posteriors (512-row blocking is only
-    # measured/validated with the bfloat16 stream; at f32 the same working
-    # set once exceeded the ~16 MiB scoped-vmem limit) and shrinks with the
-    # time unroll.
-    blk = _default_block()
-    if jnp.dtype(lpost.dtype).itemsize >= 4:
-        blk = min(blk, 256)
-    BB = min(B, max(64, blk // U))
-    Bp = -(-B // BB) * BB
-    nblk = -(-T // U)
-    Tp = nblk * U
-    if Bp != B or Tp != T:
-        lp_kmer = jnp.pad(lp_kmer, ((0, Tp - T), (0, Bp - B), (0, 0)))
-        lp_stay = jnp.pad(lp_stay, ((0, Tp - T), (0, Bp - B), (0, 0)))
-    e_step = jnp.asarray(_expansion_matrix(K // nbase, K, nbase))
-    # the skip branch folds into the step branch at step-group resolution,
-    # so its expansion only lifts (K/nbase^2) -> (K/nbase)
-    e_skip = jnp.asarray(_expansion_matrix(K // (nbase * nbase), K // nbase,
-                                           nbase))
-
-    kernel = partial(_fwd_kernel, nstep=nbase, nskip=nbase * nbase,
-                     skip_pen=float(skip_pen), K=K, B=BB, take_log=take_log,
-                     expand=expand, unroll=U, T=T, skip_max=skip_max)
-    traceback, vfinal = pl.pallas_call(
-        kernel,
-        grid=(Bp // BB, nblk),
-        in_specs=[
-            pl.BlockSpec((U, BB, K), lambda b, t: (t, b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((U, BB, 1), lambda b, t: (t, b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((K // nbase, K), lambda b, t: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((K // (nbase * nbase), K // nbase),
-                         lambda b, t: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((U, BB, K), lambda b, t: (t, b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BB, K), lambda b, t: (b, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((Tp, Bp, K), jnp.int8),
-            jax.ShapeDtypeStruct((Bp, K), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((BB, K), jnp.float32)],
-        interpret=_use_interpret(),
-    )(lp_kmer, lp_stay, e_step, e_skip)
-    return vfinal[:B], traceback[:T, :B]
-
-
-def _use_interpret():
-    return jax.default_backend() not in ("tpu",)
-
-
-def _default_expand():
-    """Score-expansion strategy (see :func:`_expand_scores`); overridable
-    for experiments via ``SLOIKA_TPU_VITERBI_EXPAND``.  Default "split3":
-    exact by construction and measured ~10% faster than "highest" on v5e
-    (bit-identical traceback; scripts/bench_viterbi_expand.py)."""
-    import os
-    return os.environ.get("SLOIKA_TPU_VITERBI_EXPAND", "split3")
-
-
-def _default_unroll():
-    """Time rows consumed per grid step; overridable for experiments via
-    ``SLOIKA_TPU_VITERBI_UNROLL``."""
-    import os
-    return int(os.environ.get("SLOIKA_TPU_VITERBI_UNROLL", "1"))
-
-
-def _default_block():
-    """Batch-block rows per grid step; overridable for experiments via
-    ``SLOIKA_TPU_VITERBI_BB``.  512 measured best at the bench shape with
-    the bfloat16 posterior stream (16.6 us/step at B=512 vs 18.2 blocked at
-    128 — the per-step reduce/expand chain amortises over more batch rows);
-    float32 posteriors cap the block at 256 (see viterbi_forward)."""
-    import os
-    return int(os.environ.get("SLOIKA_TPU_VITERBI_BB", "512"))
-
-
-def _default_skip_max():
-    """Skip group-max strategy: ``"direct"`` (second pass over the scores)
-    or ``"derived"`` (two-level reduction reusing the step maxima — see
-    :func:`_derived_skip_reduce`); overridable via
-    ``SLOIKA_TPU_VITERBI_SKIPMAX``.  Default "derived": bit-identical and
-    measured faster on v5e (scripts/bench_viterbi_expand.py)."""
-    import os
-    return os.environ.get("SLOIKA_TPU_VITERBI_SKIPMAX", "derived")
-
-
+@partial(jax.jit, static_argnames=("klen", "skip_pen", "log", "nbase",
+                                   "time_major", "interpret"))
 def viterbi(post, klen, skip_pen=0.0, log=False, nbase=4, time_major=False,
-            layout=None):
-    """Drop-in replacement for decode_jax.viterbi using the Pallas forward.
+            interpret=False):
+    """Drop-in replacement for :func:`sloika_tpu.ops.decode_jax.viterbi`.
 
-    With ``time_major`` the input is (T, B, nstate) — the model forward's
-    native layout — and no transpose is materialised.  Probability-domain
-    input (``log=False``) has its log taken inside the kernel, so no second
-    full-size log tensor touches HBM either.
-
-    ``layout`` selects the kernel's state placement: ``"lanes"`` (states on
-    lanes, MXU group broadcasts) or ``"sublanes"`` (states on sublanes,
-    batch on lanes — group broadcasts become sublane copies, at the price
-    of one posterior transpose).  Default from
-    ``SLOIKA_TPU_VITERBI_LAYOUT``, resolved EAGERLY here (never under
-    trace: an env read inside a jitted body is frozen by the trace cache
-    for every later same-shape call, silently ignoring env changes —
-    which is exactly what invalidated the first fused-program layout A/B).
-
+    :param post: (B, T, nstate) posteriors — or, with ``time_major``,
+        (T, B, nstate), the model forward's native layout, read without a
+        transpose.  Probabilities unless ``log`` (the log is then taken in
+        the kernel).  float32 or bfloat16.
+    :param interpret: run the kernel in the Pallas interpreter (CPU tests)
     :returns: (score (B,), path (B, T) int32, moved (B, T) bool)
     """
-    if layout is None:
-        layout = _default_layout()
-    return _viterbi_impl(post, klen, skip_pen=skip_pen, log=log,
-                         nbase=nbase, time_major=time_major, layout=layout)
-
-
-@partial(jax.jit, static_argnames=("klen", "nbase", "log", "skip_pen",
-                                   "time_major", "layout"))
-def _viterbi_impl(post, klen, skip_pen, log, nbase, time_major, layout):
-    if time_major:
-        T, B, nst = post.shape
-    else:
-        B, T, nst = post.shape
-    K = nst - 1
-    nstep = nbase
-    nskip = nbase * nbase
-
-    if layout == "sublanes":
-        post_sm = jnp.moveaxis(post, 2, 1) if time_major \
-            else jnp.transpose(post, (1, 2, 0))
-        vfinal, traceback = viterbi_forward_sm(post_sm, klen,
-                                               skip_pen=skip_pen,
-                                               nbase=nbase,
-                                               take_log=not log)
-        score = jnp.max(vfinal, axis=0)
-        last_state = jnp.argmax(vfinal, axis=0).astype(jnp.int32)
-    else:
-        vfinal, traceback = viterbi_forward(post, klen, skip_pen=skip_pen,
-                                            nbase=nbase,
-                                            time_major=time_major,
-                                            take_log=not log)
-        score = jnp.max(vfinal, axis=1)
-        last_state = jnp.argmax(vfinal, axis=1).astype(jnp.int32)
-
-    def decode_code(state, c):
-        prev_step = c * (K // nstep) + state // nstep
-        prev_skip = (c - nstep) * (K // nskip) + state // nskip
-        moved = c >= 0
-        prev = jnp.where(c < nstep, prev_step, prev_skip)
-        return jnp.where(moved, prev, state), moved
-
-    if layout == "sublanes":
-        def back_step(state, tb):    # tb (K, B)
-            c = jnp.take_along_axis(tb, state[None, :], axis=0)[0] \
-                .astype(jnp.int32)
-            new_state, moved = decode_code(state, c)
-            return new_state, (state, moved)
-    else:
-        def back_step(state, tb):    # tb (B, K)
-            c = tb[jnp.arange(B), state].astype(jnp.int32)
-            new_state, moved = decode_code(state, c)
-            return new_state, (state, moved)
-
-    first_state, (states, moved) = jax.lax.scan(
-        back_step, last_state, traceback[1:], reverse=True)
-    path = jnp.concatenate([first_state[None], states], axis=0)
-    moved = jnp.concatenate([jnp.zeros((1, B), bool), moved], axis=0)
-    return score, path.T, moved.T
-
-
-def _default_layout():
-    """Kernel state placement (see :func:`viterbi`); overridable via
-    ``SLOIKA_TPU_VITERBI_LAYOUT``.  Default "sublanes": the corrected
-    round-5 fused-program A/B (scripts/bench_viterbi_layout_fused.py —
-    the first run's env-flip was swallowed by jit trace caching and
-    compared lanes to itself) measures the state-major kernel 2.0%
-    faster in situ at B=1024 (251.3 vs 256.4 ms best, 251.4 vs 256.6
-    mean), consistent with its 8-10% isolated-stage win minus the
-    posterior-transpose entry fee; bit-identical given the same
-    posterior (scripts/verify_viterbi_layout_parity.py, on hardware at
-    production shape)."""
-    import os
-    return os.environ.get("SLOIKA_TPU_VITERBI_LAYOUT", "sublanes")
+    if not time_major:
+        post = jnp.moveaxis(post, 1, 0)
+    T, B, nst = post.shape
+    K = sv.nkmer(klen, nbase=nbase)
+    assert nst == K + 1, "posterior has {} states, expected {}".format(
+        nst, K + 1)
+    BB = BLOCK_ROWS
+    kernel = partial(_kernel, T=T, B=B, BB=BB, K=K, nbase=nbase,
+                     skip_pen=float(skip_pen), take_log=not log,
+                     interpret=interpret)
+    _, score, path, moved = pl.pallas_call(
+        kernel,
+        grid=(pl.cdiv(B, BB),),
+        out_shape=[
+            jax.ShapeDtypeStruct((T, B, K // 4), jnp.int32),  # traceback
+            jax.ShapeDtypeStruct((B,), jnp.float32),
+            jax.ShapeDtypeStruct((B, T), jnp.int32),
+            jax.ShapeDtypeStruct((B, T), jnp.int8),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name="viterbi_transducer",
+    )(post)
+    return score, path, moved.astype(bool)

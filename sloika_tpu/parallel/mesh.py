@@ -3,10 +3,14 @@
 The framework's scale-out model (replacing the reference's process pools,
 SURVEY.md §2.4): a 1-D ``('data',)`` mesh for batch-parallel training and
 basecalling.  Parameters are replicated; batches are sharded over the batch
-axis; XLA's SPMD partitioner inserts the gradient ``psum`` over ICI
-automatically from the sharding annotations.  Multi-host entry is
+axis; XLA's SPMD partitioner inserts the gradient ``psum`` automatically
+from the sharding annotations.  A Pallas kernel is opaque to that
+partitioner, so programs built for a mesh run under it as the ambient mesh
+(:func:`under_mesh`) and the kernels shard themselves over its ``'data'``
+axis with ``shard_map`` (:func:`data_mesh`).  Multi-host entry is
 ``jax.distributed.initialize`` + the same mesh over all processes' devices.
 """
+import functools
 import os
 
 import jax
@@ -46,6 +50,29 @@ def batch2_sharding(mesh, batch_axis=1):
 
 def replicated(mesh):
     return NamedSharding(mesh, P())
+
+
+def under_mesh(fn, mesh):
+    """``fn`` traced and run with ``mesh`` as the ambient mesh
+    (``jax.set_mesh``); identity for ``mesh=None``."""
+    if mesh is None:
+        return fn
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with jax.set_mesh(mesh):
+            return fn(*args, **kwargs)
+    return call
+
+
+def data_mesh():
+    """The ambient mesh when it has a ``'data'`` axis over more than one
+    device, else None: where a kernel must shard itself over the batch."""
+    mesh = jax.sharding.get_abstract_mesh()
+    if mesh.empty or "data" not in mesh.axis_names \
+            or mesh.shape["data"] == 1:
+        return None
+    return mesh
 
 
 def round_up(n, k):

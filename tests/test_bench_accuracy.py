@@ -10,10 +10,6 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-READS = "/root/reference/data/reads"
-GOLDEN = os.path.join(os.path.dirname(__file__), "data", "golden_calls.npz")
-
-
 def _import_bench():
     """Import bench.py without its import-time compute-dtype setdefault
     leaking into this process's environment (subprocess-spawning tests
@@ -26,21 +22,55 @@ def _import_bench():
     return bench
 
 
-@pytest.fixture(scope="module")
-def scored():
-    if not os.path.isdir(READS):
-        pytest.skip("bundled reads not present")
-    bench = _import_bench()
-    from sloika_tpu.data.fast5 import Fast5
+FULL = ["sim_full_0.fast5", "sim_full_1.fast5"]
+NOREF = ["sim_noref.fast5"]
+FRAGMENT = "sim_fragment.fast5"
 
-    z = np.load(GOLDEN)
-    seqs, refs = {}, {}
-    for fn in sorted(glob.glob(READS + "/*.fast5")):
+
+def _call_with_errors(seq, rs, rate=0.05):
+    """A basecall of ``seq`` with ~``rate`` substitutions."""
+    seq = np.frombuffer(seq, np.uint8).copy()
+    hit = rs.rand(len(seq)) < rate
+    seq[hit] = np.frombuffer(b"ACGT", np.uint8)[rs.randint(0, 4, hit.sum())]
+    return seq.tobytes().decode()
+
+
+@pytest.fixture(scope="module")
+def read_set(simulated_reads, tmp_path_factory):
+    """Simulated reads as the bench scores them: two with full in-file
+    references, one without, one whose reference is a 172-base fragment;
+    calls are the true sequences with 5% substitutions (the fragment read's
+    call is 5 bases)."""
+    import shutil
+    import h5py
+
+    outdir = tmp_path_factory.mktemp("scored_reads")
+    rs = np.random.RandomState(0)
+    seqs = {}
+    for name, src in zip(FULL + NOREF + [FRAGMENT], simulated_reads):
+        fn = str(outdir / name)
+        shutil.copy(src, fn)
+        with h5py.File(fn, "r+") as h5:
+            fa = h5["Analyses/Alignment_000/Aligned_template/Fasta"]
+            seq = fa[()].decode().splitlines()[1].encode()
+            if name in NOREF:
+                del h5["Analyses/Alignment_000"]
+            elif name == FRAGMENT:
+                del h5["Analyses/Alignment_000/Aligned_template/Fasta"]
+                h5["Analyses/Alignment_000/Aligned_template"] \
+                    .create_dataset("Fasta", data=">frag\n{}\n".format(
+                        seq[100:272].decode()))
+        seqs[name] = _call_with_errors(seq, rs)
+    # like a read whose signal is mostly open pore: a ~5-base call
+    seqs[FRAGMENT] = seqs[FRAGMENT][100:105]
+    return str(outdir), seqs
+
+
+def _refs(outdir):
+    from sloika_tpu.data.fast5 import Fast5
+    refs = {}
+    for fn in sorted(glob.glob(outdir + "/*.fast5")):
         name = os.path.basename(fn)
-        short = name[:-len(".fast5")]
-        seqs[name] = z["seq_" + short].item()
-        if isinstance(seqs[name], bytes):
-            seqs[name] = seqs[name].decode()
         try:
             with Fast5(fn) as f5:
                 ref = f5.get_reference_fasta()
@@ -49,7 +79,14 @@ def scored():
                 if not l.startswith(b">")).decode()
         except Exception:
             refs[name] = None
-    return bench.score_reads(seqs, refs), refs
+    return refs
+
+
+@pytest.fixture(scope="module")
+def scored(read_set):
+    outdir, seqs = read_set
+    refs = _refs(outdir)
+    return _import_bench().score_reads(seqs, refs), refs
 
 
 def test_every_read_scored_or_reasoned(scored):
@@ -62,7 +99,7 @@ def test_every_read_scored_or_reasoned(scored):
 
 def test_reads_with_full_references_are_scored(scored):
     (mean, per_read, skipped, mean_local), refs = scored
-    for name in ["read2.fast5", "read4.fast5", "read5.fast5", "read6.fast5"]:
+    for name in FULL:
         assert name in per_read, skipped.get(name)
         assert per_read[name] > 0.8
     assert mean is not None and mean > 0.8
@@ -70,18 +107,16 @@ def test_reads_with_full_references_are_scored(scored):
 
 def test_reads_without_references_have_reasons(scored):
     (mean, per_read, skipped, mean_local), refs = scored
-    for name in ["read1.fast5", "read3.fast5", "read8.fast5"]:
+    for name in NOREF:
         assert skipped[name] == "no in-file reference"
 
 
 def test_fragment_read_scored_or_explicitly_gated(scored):
-    """read7's reference is a 172-base fragment.  Its golden full-read call
-    is ~5 bases (the signal is mostly open-pore), so it is either scored in
-    fragment mode or skipped with the explicit unalignable reason — never
-    silently absent."""
+    """A read whose in-file reference is a 172-base fragment of its call is
+    either scored in fragment mode or skipped with the explicit unalignable
+    reason — never silently absent."""
     (mean, per_read, skipped, mean_local), refs = scored
-    name = "read7.fast5"
-    assert name in per_read or "unalignable" in skipped.get(name, "")
+    assert FRAGMENT in per_read or "unalignable" in skipped.get(FRAGMENT, "")
 
 
 def test_bases_weighting():
@@ -95,31 +130,14 @@ def test_bases_weighting():
     assert mean == pytest.approx(0.2, abs=1e-6)
 
 
-def test_local_metric_covered(scored):
+def test_local_metric_covered(read_set):
     """score_reads(local=True) produces a local mean near the semiglobal
     one (the documented bwa-semantics delta) and records a skip reason for
     any read present in the global mean but unalignable locally."""
-    import glob
     bench = _import_bench()
-    from sloika_tpu.data.fast5 import Fast5
-
-    z = np.load(GOLDEN)
-    seqs, refs = {}, {}
-    for fn in sorted(glob.glob(READS + "/*.fast5")):
-        name = os.path.basename(fn)
-        short = name[:-len(".fast5")]
-        seq = z["seq_" + short].item()
-        seqs[name] = seq.decode() if isinstance(seq, bytes) else seq
-        try:
-            with Fast5(fn) as f5:
-                ref = f5.get_reference_fasta()
-            refs[name] = b"".join(
-                l for l in ref.splitlines()
-                if not l.startswith(b">")).decode()
-        except Exception:
-            refs[name] = None
+    outdir, seqs = read_set
     mean, per_read, skipped, mean_local = bench.score_reads(
-        seqs, refs, local=True)
+        seqs, _refs(outdir), local=True)
     assert mean_local is not None
     # bwa-like local accuracy soft-clips bad call ends: >= semiglobal,
     # within the documented ~+1.3-point band

@@ -265,16 +265,27 @@ def test_load_labelled_chunks_all_zero_weights_fails_loudly(tmp_path):
         hdf5_mod.load_labelled_chunks(path)
 
 
-def test_interpolated_labels_use_read_local_coordinates():
-    """read7's mapping summary stores genome_start=4031059 while seq_pos is
-    read-local (8..167 against a 172-base per-read fasta): interpolation
-    must use local coordinates (attrs ref_start=0/ref_stop=len(ref)), not
+def test_interpolated_labels_use_read_local_coordinates(simulated_reads,
+                                                        tmp_path):
+    """A mapping summary can store genomic coordinates (genome_start) while
+    seq_pos is read-local against the per-read fasta: interpolation must
+    use local coordinates (attrs ref_start=0/ref_stop=len(ref)), not
     genomic ones, or every interpolated label is garbage."""
+    import shutil
+    import h5py
     import numpy as np
     from sloika_tpu.data.fast5 import Fast5
     from sloika_tpu.data import raw_chunkify
 
-    with Fast5("/root/reference/data/reads/read7.fast5") as f5:
+    fn = str(tmp_path / "genomic.fast5")
+    shutil.copy(simulated_reads[0], fn)
+    with h5py.File(fn, "r+") as h5:
+        summ = h5["Analyses/AlignToRef_000/Summary/"
+                  "current_space_map_template"]
+        summ.attrs["genome_start"] = np.int64(4031059)
+        summ.attrs["genome_end"] = np.int64(4031059 + 700)
+
+    with Fast5(fn) as f5:
         ev, att = f5.get_any_mapping_data("template")
         sample_rate = f5.sample_rate
         start_sample = f5.raw_start_sample

@@ -9,11 +9,11 @@ import sloika_tpu.nn as nn
 
 CELLS = {
     "gru": lambda: nn.Gru(5, 8, init=nn.truncated_normal(0.4), has_bias=True,
-                          fused=False),
+                          impl="xla"),
     "lstm": lambda: nn.Lstm(5, 8, init=nn.truncated_normal(0.4),
                             has_bias=True, has_peep=True),
     # has_peep=True so the peephole leaf is differentiated (without it the
-    # zero peepholes are deliberately frozen — test_pallas_lstm covers that)
+    # zero peepholes are deliberately frozen — see the test at the end)
     "lstm_cifg": lambda: nn.LstmCIFG(5, 8, init=nn.truncated_normal(0.4),
                                      has_bias=True, has_peep=True),
     "genmut": lambda: nn.Genmut(5, 8, init=nn.truncated_normal(0.4),
@@ -105,3 +105,15 @@ def test_loss_gradient_finite_when_label_posterior_underflows():
     assert float(loss) == pytest.approx(-np.log(1e-30), rel=1e-4)
     assert all(bool(jnp.all(jnp.isfinite(g)))
                for g in jax.tree_util.tree_leaves(grads))
+
+
+def test_lstm_peep_gradient_frozen_without_has_peep():
+    """has_peep=False must not leak gradients into the zero peephole
+    weights (the optimiser would silently train them)."""
+    layer = nn.Lstm(8, 16, init=nn.truncated_normal(0.4), has_bias=True,
+                    has_peep=False)
+    params = layer.init(jax.random.PRNGKey(0))
+    x = jnp.asarray(np.random.RandomState(0).normal(
+        size=(12, 3, 8)).astype(np.float32))
+    g = jax.grad(lambda p: jnp.sum(layer.apply(p, x) ** 2))(params)
+    assert np.all(np.asarray(g["p"]) == 0.0)

@@ -1,4 +1,5 @@
-"""Pallas Viterbi kernel parity tests (interpreter mode on CPU)."""
+"""Viterbi kernel parity tests (Pallas interpreter on the CPU)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -7,57 +8,55 @@ from sloika_tpu.ops import decode_jax, decode_np
 from sloika_tpu.ops.pallas import viterbi as pallas_viterbi
 
 
-@pytest.mark.parametrize("skip_pen", [0.0, 3.0])
-def test_pallas_matches_xla(skip_pen):
-    rs = np.random.RandomState(0xF00D)
-    post = rs.dirichlet(np.full(1025, 0.05), size=(4, 40)).astype(np.float32)
-    s1, p1, m1 = decode_jax.viterbi(jnp.asarray(post), 5, skip_pen=skip_pen)
-    s2, p2, m2 = pallas_viterbi.viterbi(jnp.asarray(post), 5,
-                                        skip_pen=skip_pen)
-    np.testing.assert_allclose(np.asarray(s1), np.asarray(s2), rtol=1e-6)
+def _kernel(post, klen=5, **kw):
+    return pallas_viterbi.viterbi(post, klen, interpret=True, **kw)
+
+
+def _assert_same(a, b, rtol=0.0):
+    (s1, p1, m1), (s2, p2, m2) = a, b
+    if rtol:
+        np.testing.assert_allclose(np.asarray(s1), np.asarray(s2), rtol=rtol)
+    else:
+        np.testing.assert_array_equal(np.asarray(s1), np.asarray(s2))
     np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
     np.testing.assert_array_equal(np.asarray(m1), np.asarray(m2))
 
 
 @pytest.mark.parametrize("skip_pen", [0.0, 3.0])
-def test_derived_skip_max_exact(skip_pen):
-    """The two-level skip reduction must be bit-identical to the direct one —
-    including tie-breaking, which a quantised posterior exercises heavily."""
+def test_kernel_matches_xla(skip_pen):
+    rs = np.random.RandomState(0xF00D)
+    post = rs.dirichlet(np.full(1025, 0.05), size=(4, 40)).astype(np.float32)
+    _assert_same(decode_jax.viterbi(jnp.asarray(post), 5, skip_pen=skip_pen),
+                 _kernel(jnp.asarray(post), skip_pen=skip_pen), rtol=1e-6)
+
+
+@pytest.mark.parametrize("skip_pen", [0.0, 3.0])
+def test_derived_skip_max_tie_breaking(skip_pen):
+    """The skip maximum derived from the step maxima must break ties like a
+    direct first-wins argmax (the XLA decoder's); quantised posteriors make
+    equal scores from distinct predecessors abundant."""
     rs = np.random.RandomState(7)
     post = rs.dirichlet(np.full(1025, 0.05), size=(3, 30)).astype(np.float32)
-    # quantise so equal scores (and equal-score distinct predecessors) abound
     post = np.round(post * 8) / 8 + 1e-3
-    for x in (post, rs.dirichlet(np.full(1025, 0.05),
-                                 size=(3, 30)).astype(np.float32)):
-        lx = jnp.log(jnp.asarray(x) + 1e-10)
-        v1, t1 = pallas_viterbi.viterbi_forward(lx, 5, skip_pen=skip_pen,
-                                                skip_max="direct")
-        v2, t2 = pallas_viterbi.viterbi_forward(lx, 5, skip_pen=skip_pen,
-                                                skip_max="derived")
-        np.testing.assert_array_equal(np.asarray(v1), np.asarray(v2))
-        np.testing.assert_array_equal(np.asarray(t1), np.asarray(t2))
+    _assert_same(decode_jax.viterbi(jnp.asarray(post), 5, skip_pen=skip_pen),
+                 _kernel(jnp.asarray(post), skip_pen=skip_pen))
 
 
 def test_bfloat16_posterior_streaming_exact_after_rounding():
-    """bf16 posterior input (the transfer-lean throughput mode): the kernel
-    upcasts to f32 after the load, so results are *exact* w.r.t. the
-    bf16-rounded posterior — the f32 kernel fed the rounded values must
-    agree bit-for-bit."""
+    """bf16 posterior input: the kernel upcasts after the load, so results
+    are exact w.r.t. the bf16-rounded posterior — the kernel fed the same
+    values in f32 must agree bit for bit."""
     rs = np.random.RandomState(11)
     post = rs.dirichlet(np.full(1025, 0.05), size=(3, 30)).astype(np.float32)
     post_bf = jnp.asarray(post).astype(jnp.bfloat16)
-    v16, t16 = pallas_viterbi.viterbi_forward(post_bf, 5, skip_pen=3.0,
-                                              take_log=True)
-    v32, t32 = pallas_viterbi.viterbi_forward(
-        post_bf.astype(jnp.float32), 5, skip_pen=3.0, take_log=True)
-    np.testing.assert_array_equal(np.asarray(v16), np.asarray(v32))
-    np.testing.assert_array_equal(np.asarray(t16), np.asarray(t32))
+    _assert_same(_kernel(post_bf, skip_pen=3.0),
+                 _kernel(post_bf.astype(jnp.float32), skip_pen=3.0))
 
 
-def test_pallas_matches_numpy_oracle():
+def test_kernel_matches_numpy_oracle():
     rs = np.random.RandomState(42)
     post = rs.dirichlet(np.full(65, 0.1), size=(2, 25)).astype(np.float32)
-    s, p, m = pallas_viterbi.viterbi(jnp.asarray(post), 3, skip_pen=2.0)
+    s, p, m = _kernel(jnp.asarray(post), klen=3, skip_pen=2.0)
     for b in range(2):
         ref_score, ref_path = decode_np.viterbi(post[b].astype(np.float64), 3,
                                                 skip_pen=2.0)
@@ -68,80 +67,78 @@ def test_pallas_matches_numpy_oracle():
 
 @pytest.mark.parametrize("skip_pen", [0.0, 3.0])
 @pytest.mark.parametrize("time_major", [False, True])
-def test_sublane_layout_bit_identical(skip_pen, time_major):
-    """The state-major kernel must be bit-identical to the lane-major one
-    (same math, same tie-breaks, different hardware placement) — quantised
-    posteriors make score ties abundant."""
+def test_time_major_entry(skip_pen, time_major):
+    """The time-major entry reads the forward's native (T, B, nstate)
+    layout; both entries must agree with the XLA decoder."""
     rs = np.random.RandomState(0xBEEF)
     post = rs.dirichlet(np.full(1025, 0.05), size=(3, 35)).astype(np.float32)
     post = np.round(post * 8) / 8 + 1e-3
     x = jnp.asarray(np.moveaxis(post, 0, 1) if time_major else post)
-    s1, p1, m1 = pallas_viterbi.viterbi(x, 5, skip_pen=skip_pen,
-                                        time_major=time_major,
-                                        layout="lanes")
-    s2, p2, m2 = pallas_viterbi.viterbi(x, 5, skip_pen=skip_pen,
-                                        time_major=time_major,
-                                        layout="sublanes")
-    np.testing.assert_array_equal(np.asarray(s1), np.asarray(s2))
-    np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
-    np.testing.assert_array_equal(np.asarray(m1), np.asarray(m2))
+    _assert_same(decode_jax.viterbi(x, 5, skip_pen=skip_pen,
+                                    time_major=time_major),
+                 _kernel(x, skip_pen=skip_pen, time_major=time_major))
 
 
-def test_layout_knob_reaches_kernel(monkeypatch):
-    """Regression for the round-5 layout-A/B flaw: the env-var default was
-    resolved INSIDE the jitted body, so the first trace froze the layout
-    for every later same-shape call and an env flip between two program
-    builds was silently ignored (both A/B arms ran "lanes").  The default
-    must be resolved eagerly, outside the jit boundary."""
-    seen = []
-    real = pallas_viterbi._viterbi_impl
-
-    def spy(post, klen, **kw):
-        seen.append(kw["layout"])
-        return real(post, klen, **kw)
-
-    monkeypatch.setattr(pallas_viterbi, "_viterbi_impl", spy)
-    rs = np.random.RandomState(3)
-    post = jnp.asarray(rs.dirichlet(np.full(1025, 0.05),
-                                    size=(2, 8)).astype(np.float32))
-    monkeypatch.setenv("SLOIKA_TPU_VITERBI_LAYOUT", "lanes")
-    pallas_viterbi.viterbi(post, 5)
-    monkeypatch.setenv("SLOIKA_TPU_VITERBI_LAYOUT", "sublanes")
-    pallas_viterbi.viterbi(post, 5)         # same shapes, env flipped
-    pallas_viterbi.viterbi(post, 5, layout="lanes")   # explicit arg wins
-    assert seen == ["lanes", "sublanes", "lanes"]
+@pytest.mark.parametrize("B", [1, 3, 9])
+def test_batch_tail_rows_masked(B):
+    """Rows past the batch in the last program are masked out of every load
+    and store: any batch size decodes like the XLA decoder."""
+    assert pallas_viterbi.BLOCK_ROWS == 4     # 1, 3 and 9 leave a tail
+    rs = np.random.RandomState(B)
+    post = rs.dirichlet(np.full(65, 0.1), size=(B, 21)).astype(np.float32)
+    _assert_same(decode_jax.viterbi(jnp.asarray(post), 3, skip_pen=1.0),
+                 _kernel(jnp.asarray(post), klen=3, skip_pen=1.0), rtol=1e-6)
 
 
-def test_basecaller_layout_arg_changes_program():
-    """Basecaller(viterbi_layout=...) must produce genuinely different
-    lowered programs for the two layouts (the property the fused A/B
-    script asserts before timing)."""
-    from sloika_tpu import basecall as bc
-    from sloika_tpu.nn import layers as L
-
-    layer = L.FeedForward(1, 1025, has_bias=True)
-    params = layer.init(__import__("jax").random.PRNGKey(0))
-    texts = []
-    for layout in ("lanes", "sublanes"):
-        caller = bc.Basecaller(layer, params, 5, batch_size=2, chunked=True,
-                               chunk_size=64, overlap=16,
-                               viterbi_impl="pallas", output="bases",
-                               viterbi_layout=layout)
-        run = caller._forward_decode(64)
-        x = jnp.zeros((64, 2, 1), jnp.float32)   # time-major (T, B, F)
-        lens = jnp.full((2,), 64, jnp.int32)
-        texts.append(run.lower(params, x, lens).as_text())
-    assert texts[0] != texts[1]
-
-
-def test_sublane_layout_bf16_stream_exact():
-    rs = np.random.RandomState(5)
+def test_skips_disabled():
+    """An infinite skip penalty drops the skip branch statically."""
+    rs = np.random.RandomState(2)
     post = rs.dirichlet(np.full(1025, 0.05), size=(2, 20)).astype(np.float32)
-    post_bf = jnp.asarray(post).astype(jnp.bfloat16)
-    s1, p1, m1 = pallas_viterbi.viterbi(post_bf, 5, skip_pen=3.0,
-                                        layout="lanes")
-    s2, p2, m2 = pallas_viterbi.viterbi(post_bf, 5, skip_pen=3.0,
-                                        layout="sublanes")
-    np.testing.assert_array_equal(np.asarray(s1), np.asarray(s2))
-    np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
-    np.testing.assert_array_equal(np.asarray(m1), np.asarray(m2))
+    s, p, m = _kernel(jnp.asarray(post), skip_pen=float("inf"))
+    ref = decode_jax.viterbi(jnp.asarray(post), 5, skip_pen=1e30)
+    _assert_same((s, p, m), ref, rtol=1e-6)
+
+
+def test_log_domain_input():
+    rs = np.random.RandomState(4)
+    post = rs.dirichlet(np.full(1025, 0.05), size=(2, 20)).astype(np.float32)
+    lpost = jnp.log(jnp.asarray(post) + 1e-10)
+    _assert_same(_kernel(lpost, skip_pen=2.0, log=True),
+                 decode_jax.viterbi(lpost, 5, skip_pen=2.0, log=True),
+                 rtol=1e-6)
+
+
+def _bases_caller(impl, mesh=None):
+    from sloika_tpu import basecall as bc, nn
+
+    layer = nn.Softmax(1, 1025, init=nn.truncated_normal(1.0),
+                       has_bias=True)
+    params = layer.init(jax.random.PRNGKey(0))
+    return bc.Basecaller(layer, params, 5, batch_size=4, chunked=True,
+                         chunk_size=64, overlap=8, viterbi_impl=impl,
+                         output="bases", mesh=mesh)
+
+
+def _signals():
+    rs = np.random.RandomState(9)
+    return [rs.normal(size=n).astype(np.float32) for n in (150, 90, 64)]
+
+
+def test_basecaller_kernel_matches_xla():
+    got = _bases_caller("interpret").basecall_signals(_signals())
+    ref = _bases_caller("xla").basecall_signals(_signals())
+    for a, b in zip(got, ref):
+        assert a[0] == pytest.approx(b[0], rel=1e-6)
+        np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_basecaller_kernel_under_shard_map():
+    """With a mesh the kernel runs under shard_map, one batch shard per
+    device; calls must equal the single-device kernel."""
+    from sloika_tpu.parallel import mesh as meshlib
+    got = _bases_caller("interpret", meshlib.make_mesh(4)).basecall_signals(
+        _signals())
+    ref = _bases_caller("interpret").basecall_signals(_signals())
+    for a, b in zip(got, ref):
+        assert a[0] == pytest.approx(b[0], rel=1e-6)
+        np.testing.assert_array_equal(a[1], b[1])

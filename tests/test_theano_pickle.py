@@ -24,12 +24,90 @@ class _Fun:
         self.name = name
 
 
-def test_pretrained_pickle_roundtrip():
-    layer, params = tp.load_model("/root/reference/models/pretrained.pkl")
-    assert layer.to_json()["type"] == "serial"
-    assert layer.size == 1025
+def _fake_reference_modules(monkeypatch):
+    """Install importable stand-ins for the reference's ``sloika.layers``,
+    ``sloika.activation`` and Theano's shared-variable classes, so a
+    pickle with the reference's globals can be written here."""
+    import sys
+    import types
+
+    mods = {}
+    for name in ("sloika", "sloika.layers", "sloika.activation", "theano",
+                 "theano.tensor", "theano.tensor.sharedvar",
+                 "theano.compile", "theano.compile.function_module"):
+        mods[name] = types.ModuleType(name)
+        monkeypatch.setitem(sys.modules, name, mods[name])
+
+    def cls(module, name):
+        c = type(name, (), {"__module__": module})
+        c.__qualname__ = name
+        setattr(mods[module], name, c)
+        return c
+
+    layers = {n: cls("sloika.layers", n) for n in
+              ("Serial", "Reverse", "Convolution", "Gru", "Softmax")}
+    shared = cls("theano.tensor.sharedvar", "TensorSharedVariable")
+    container = cls("theano.compile.function_module", "Container")
+    funs = {}
+    for n in ("tanh", "sigmoid"):
+        f = lambda x: x
+        f.__module__, f.__name__, f.__qualname__ = "sloika.activation", n, n
+        setattr(mods["sloika.activation"], n, f)
+        funs[n] = f
+    return layers, shared, container, funs
+
+
+def test_pretrained_pickle_roundtrip(monkeypatch):
+    """A pickle written with the reference's globals (Theano shared
+    variables, sloika.layers classes, activation functions) for the layer
+    graph of the reference's pretrained model (raw_1.00_rGr: tanh
+    convolution 128 stride 5, reversed GRU 110, GRU 142, reversed GRU 110,
+    softmax 1025) imports to the same graph and the same weights."""
+    import pickle
+    from sloika_tpu.models import build
+
+    layers, shared_cls, container_cls, funs = \
+        _fake_reference_modules(monkeypatch)
+    rs = np.random.RandomState(0)
+
+    def shared(*shape):
+        v = shared_cls()
+        v.container = container_cls()
+        v.container.storage = [rs.normal(scale=0.1, size=shape)
+                               .astype(np.float32)]
+        return v
+
+    def layer(kind, **attrs):
+        obj = layers[kind]()
+        obj.__dict__.update(attrs)
+        return obj
+
+    def gru(I, S):
+        return layer("Gru", iW=shared(3 * S, I), sW=shared(2 * S, S),
+                     sW2=shared(S, S), b=shared(3 * S), has_bias=True,
+                     fun=funs["tanh"], gatefun=funs["sigmoid"])
+
+    graph = layer("Serial", layers=[
+        layer("Convolution", W=shared(128, 1, 11), b=shared(128), stride=5,
+              has_bias=True, fun=funs["tanh"]),
+        layer("Reverse", layer=gru(128, 110)),
+        gru(110, 142),
+        layer("Reverse", layer=gru(142, 110)),
+        layer("Softmax", W=shared(1025, 110), b=shared(1025),
+              has_bias=True)])
+    blob = pickle.dumps(graph, protocol=2)
+
+    monkeypatch.undo()          # the importer must not need the modules
+    lay, params = tp.convert(tp.load_raw(blob))
+    ref = build("raw_1.00_rGr", klen=5, sd=0.5, stride=5)
+    assert lay.to_json() == ref.to_json()
+    assert lay.size == 1025
+    np.testing.assert_array_equal(
+        np.asarray(params["sublayers"][2]["iW"]),
+        graph.layers[2].iW.container.storage[0].reshape(3, 142, 110))
     x = np.random.RandomState(0).normal(size=(50, 2, 1)).astype(np.float32)
-    out = np.asarray(layer.apply(params, x))
+    out = np.asarray(lay.apply(params, x))
+    assert out.shape == (10, 2, 1025)
     np.testing.assert_allclose(out.sum(axis=2), 1.0, rtol=1e-5)
 
 
